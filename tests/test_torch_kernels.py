@@ -1,4 +1,4 @@
-"""The plain versions of zktpu_torch's four kernels vs the JAX kernels they port.
+"""The plain versions of zktpu_torch's five kernels vs the JAX kernels they port.
 
 Each plain PyTorch version (what a CPU tensor gets from the wrapper, and what
 the CUDA kernel is held against on the card) is compared with the Pallas TPU
@@ -18,7 +18,7 @@ from zktpu.field import jnp_backend as jfb
 from zktpu.field import pallas_kernels as pk
 from zktpu.field.spec import BLS12_381_FR as JAX_FR
 from zktpu.poly.multilinear import halves_sum_kernel
-from zktpu.sumcheck.protocol import fold_tables_kernel
+from zktpu.sumcheck.protocol import fold_tables_kernel, gkr_round_kernel
 
 from zktpu_torch import convert
 from zktpu_torch.field import kernels as fk
@@ -182,3 +182,82 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(data):
         fk.halves_sums(ctx, np.zeros((4, 8), np.int32))
     # nothing on the CPU counts as a kernel launch
     assert fk.launches == before == {name: 0 for name in fk.KERNEL_NAMES}
+
+
+# ----------------------------------------------------------------------
+# gkr_round
+# ----------------------------------------------------------------------
+
+def _gkr_stacks(data, size):
+    ctx, jctx, vals, (a, b), (ja, jb) = data
+    tables = torch.stack([torch.stack([a[:size], b[:size]]), torch.stack([b[:size], a[:size]])])
+    jtables = jnp.stack([jnp.stack([ja[:size], jb[:size]]), jnp.stack([jb[:size], ja[:size]])])
+    return tables.contiguous(), jtables
+
+
+def _reduced(jctx, jys):
+    return [int(v) for v in jctx.unpack(np.asarray(jfb.from_mont(jctx, jys)))]
+
+
+@pytest.mark.parametrize("size", [1024, 2048])
+def test_gkr_round_plain_equals_the_tpu_kernel(data, size):
+    """Sizes the Pallas kernel takes (interpret mode): rows word for word once
+    zktpu's uncarried digit rows are carried, and the reduced values."""
+    ctx, jctx = data[0], data[1]
+    tables, jtables = _gkr_stacks(data, size)
+    rows = fk.gkr_round(ctx, tables)  # a CPU tensor: the wrapper takes the plain version
+    assert rows.dtype == torch.int32 and tuple(rows.shape) == (3, 8 + fk.EXTRA_WORDS)
+    assert torch.equal(rows, fk.gkr_round_plain(ctx, tables))
+    assert pk.pallas_available(size, pk.TILE // 4)
+    jrows = pk.gkr_round_pallas(jctx, jtables, 2)
+    assert torch.equal(rows, convert.lazy_rows_from_zktpu(np.asarray(jrows)))
+    want = _reduced(jctx, gkr_round_kernel(jctx, jtables, 2))
+    assert fk.lazy_rows_to_ints(ctx, rows) == want == pk.lazy_rows_to_ints(jctx, jrows)
+
+
+@pytest.mark.parametrize("size", [2, 4, 64])
+def test_gkr_round_plain_small_sizes(data, size):
+    """Sizes the TPU kernel does not take: the plain JAX round function covers them."""
+    ctx, jctx = data[0], data[1]
+    tables, jtables = _gkr_stacks(data, size)
+    want = _reduced(jctx, gkr_round_kernel(jctx, jtables, 2))
+    assert fk.lazy_rows_to_ints(ctx, fk.gkr_round(ctx, tables)) == want
+
+
+def test_gkr_round_plain_edge_tables(data):
+    """All-zero factors, the constant-one table of phase 1, and p - 1 next to 0
+    and 1 (b - a borrows, b + (b - a) crosses p)."""
+    ctx, jctx, vals, (a, b), (ja, jb) = data
+    size = 8
+    edge = a[:size].clone()  # vals[:3] = 0, p - 1, 1
+    jedge = ja[:size]
+    ones, jones = ctx.one_mont.expand(size, 8), jnp.broadcast_to(jnp.asarray(jctx.one_mont), (size, 16))
+    zeros, jzeros = torch.zeros_like(edge), jnp.zeros_like(jedge)
+    tables = torch.stack([torch.stack([edge, edge.flip(0)]), torch.stack([zeros, ones])]).contiguous()
+    jtables = jnp.stack([jnp.stack([jedge, jedge[::-1]]), jnp.stack([jzeros, jones])])
+    want = _reduced(jctx, gkr_round_kernel(jctx, jtables, 2))
+    assert fk.lazy_rows_to_ints(ctx, fk.gkr_round(ctx, tables)) == want
+    nothing = torch.zeros((2, 2, size, 8), dtype=torch.int32)
+    assert not fk.gkr_round(ctx, nothing).any()
+
+
+def test_gkr_round_refuses_what_the_kernel_does_not_take(data):
+    ctx, jctx, vals, (a, b), (ja, jb) = data
+    tables, _ = _gkr_stacks(data, 8)
+    with pytest.raises(ValueError):
+        fk.gkr_round(ctx, tables[0])  # not a (2, 2, size, W) stack
+    with pytest.raises(ValueError):
+        fk.gkr_round(ctx, tables[:, :, :6].contiguous())  # not a power of two
+    with pytest.raises(ValueError):
+        fk.gkr_round(ctx, tables[:, :, ::2])  # not contiguous
+    with pytest.raises(TypeError):
+        fk.gkr_round(ctx, tables.to(torch.int64))
+    assert fk.launches["gkr_round"] == 0
+
+
+def test_mont_mul_takes_leading_dimensions(data):
+    ctx, jctx, vals, (a, b), (ja, jb) = data
+    a3, b3 = a.reshape(4, SIZE // 4, 8), b.reshape(4, SIZE // 4, 8)
+    assert torch.equal(fk.mont_mul(ctx, a3, b3).reshape(SIZE, 8), fk.mont_mul(ctx, a, b))
+    assert torch.equal(fk.mont_mul(ctx, a3, ctx.r2).reshape(SIZE, 8), fk.mont_mul(ctx, a, ctx.r2))
+    assert torch.equal(fk.mont_mul(ctx, a[5], b[5]), fk.mont_mul(ctx, a, b)[5])

@@ -33,12 +33,15 @@ BUILD_DIR = os.path.join(PKG_DIR, "_build")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "--resource-usage",  # registers, spills and shared memory per kernel, kept in build_log
 ]
 
 #: stem -> loaded CDLL (one load per process)
 _cuda_libs: dict[str, ctypes.CDLL] = {}
 #: stem -> seconds the last build in this process took (0.0 when it was cached)
 build_seconds: dict[str, float] = {}
+#: stem -> what the compiler printed during that build ("" when it was cached)
+build_log: dict[str, str] = {}
 
 
 class CompileError(RuntimeError):
@@ -54,8 +57,9 @@ def _sources_hash(paths: list[str], flags: list[str]) -> str:
     return h.hexdigest()[:16]
 
 
-def _compile(cmd: list[str], out_path: str) -> None:
-    """Run ``cmd + [-o tmp]`` and rename tmp to ``out_path``."""
+def _compile(cmd: list[str], out_path: str) -> str:
+    """Run ``cmd + [-o tmp]`` and rename tmp to ``out_path``; returns what the
+    compiler printed."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so.part", dir=BUILD_DIR)
     os.close(fd)
@@ -69,6 +73,7 @@ def _compile(cmd: list[str], out_path: str) -> None:
                 f"{' '.join(cmd)} failed ({res.returncode}):\n{res.stdout}\n{res.stderr}"
             )
         os.replace(tmp, out_path)
+        return res.stdout + res.stderr
     finally:
         if os.path.exists(tmp):
             os.remove(tmp)
@@ -95,9 +100,10 @@ def cuda_library_path(stem: str) -> str:
     out_path = os.path.join(BUILD_DIR, f"lib{stem}_{tag}.so")
     if os.path.exists(out_path):
         build_seconds.setdefault(stem, 0.0)
+        build_log.setdefault(stem, "")
         return out_path
     t0 = time.time()
-    _compile([find_nvcc()] + NVCC_FLAGS + ["-I", CSRC_DIR, source], out_path)
+    build_log[stem] = _compile([find_nvcc()] + NVCC_FLAGS + ["-I", CSRC_DIR, source], out_path)
     build_seconds[stem] = time.time() - t0
     return out_path
 

@@ -18,8 +18,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .gkr.protocol import GkrProof
 from .hash.keccak_device import pairs_to_lanes
-from .sumcheck.protocol import Proof
+from .poly.multilinear import MultilinearPoly
+from .poly.univariate import UnivariatePoly
+from .sumcheck.protocol import GkrSumcheckProof, Proof
 
 
 def _digits_to_words(digits) -> np.ndarray:
@@ -98,3 +101,37 @@ def proof_to_zktpu(proof: Proof, cls):
     """This package's ``Proof`` -> ``cls(proof_polynomials, claimed_sum)``; the
     caller passes ``zktpu.sumcheck.protocol.Proof`` as ``cls``."""
     return cls([[int(v) for v in rp] for rp in proof.proof_polynomials], int(proof.claimed_sum))
+
+
+def round_polys_from_zktpu(spec, polys) -> list[UnivariatePoly]:
+    """Round polynomials (any objects with ``coefficients``) -> this package's
+    ``UnivariatePoly`` over ``spec``, coefficient for coefficient."""
+    return [UnivariatePoly(spec, [int(c) for c in poly.coefficients]) for poly in polys]
+
+
+def round_polys_to_zktpu(polys, cls, spec) -> list:
+    """This package's round polynomials -> ``cls(spec, coefficients)``; the caller
+    passes ``zktpu.poly.univariate.UnivariatePoly`` and zktpu's field spec."""
+    return [cls(spec, [int(c) for c in poly.coefficients]) for poly in polys]
+
+
+def gkr_sumcheck_proof_from_zktpu(spec, proof) -> GkrSumcheckProof:
+    """``zktpu.sumcheck.protocol.GkrSumcheckProof`` -> this package's."""
+    return GkrSumcheckProof(
+        round_polys_from_zktpu(spec, proof.proof_polynomials),
+        int(proof.claimed_sum),
+        [int(r) for r in proof.random_challenges],
+    )
+
+
+def gkr_proof_from_zktpu(ctx, proof) -> GkrProof:
+    """The layer walk of a ``zktpu.gkr.protocol.GkrProof`` (output table, every
+    layer's round polynomials, the claimed evaluations) -> this package's
+    ``GkrProof`` on ``ctx.device``. The input proof is not carried over; its two
+    opened evaluations are ``proof.input_proof.opened_evals``."""
+    table = table_from_zktpu(np.asarray(proof.output_poly.table)).to(ctx.device)
+    return GkrProof(
+        MultilinearPoly(ctx, table),
+        [round_polys_from_zktpu(ctx.spec, layer) for layer in proof.proof_polynomials],
+        [(int(o_1), int(o_2)) for o_1, o_2 in proof.claimed_evaluations],
+    )

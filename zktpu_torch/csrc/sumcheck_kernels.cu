@@ -1,10 +1,10 @@
 // The sumcheck / multilinear hot loops as CUDA kernels for Hopper (sm_90a).
 //
-// Four kernels, each the counterpart of one Pallas TPU kernel of
+// Five kernels, each the counterpart of one Pallas TPU kernel of
 // zktpu/field/pallas_kernels.py. All share one first design: one thread per
-// field element, the element's W words moved as 16-byte vectors and held in
-// registers (field.cuh), a grid-stride loop, no shared memory except for the
-// block reduction of the two summing kernels. Tables are (size, W) uint32 words,
+// field element (gkr_round: per index of the half-cube), the element's W words
+// moved as 16-byte vectors and held in registers (field.cuh), a grid-stride
+// loop, no shared memory except for the block reduction of the summing kernels. Tables are (size, W) uint32 words,
 // element-major; every power-of-two size from 2 up is taken, the ragged edge is
 // masked by the loop bound.
 //
@@ -117,7 +117,7 @@ __device__ __forceinline__ void block_reduce_store(uint64_t (&acc)[W], uint64_t*
   }
 }
 
-// partials (2, nb, W) uint64 -> rows (2, W + 1) clean words. One block per row.
+// partials (k, nb, W) uint64 -> rows (k, W + 1) clean words. One block per row.
 template <int W>
 __global__ void __launch_bounds__(kThreads)
 finish_rows_kernel(const uint64_t* __restrict__ partials, int nb, uint32_t* __restrict__ rows) {
@@ -203,6 +203,65 @@ fold_and_halves_kernel(const uint32_t* __restrict__ table, const uint32_t* __res
 }
 
 // ---------------------------------------------------------------------------
+// gkr_round -- replaces pallas_kernels.py:gkr_round_pallas (:292).
+// tables (2, 2, size, W): product p, factor f, entry, word. For every index
+// i < half = size/2 and every (p, f): a = tables[p][f][i], b = tables[p][f][i + half],
+// v_0 = a, v_1 = b, v_2 = b + (b - a) mod p. Row t is the exact integer sum over
+// i of term_t(i) = v_t[0][0] * v_t[0][1] + v_t[1][0] * v_t[1][1] mod p (two
+// Montgomery products, one modular add), as W + 1 clean words.
+// Bound: the first kernel here that arithmetic may bound. An index costs six
+// Montgomery products against 8 elements read; at W = 8 the multiply-adds take
+// about as long as the bytes, at W = 12 longer.
+// Design: blockIdx.y picks t, so a thread holds one set of W column accumulators
+// and at most two elements besides the product in flight; holding all three t
+// at once (8 elements, their differences, three accumulator sets) would spill at
+// W = 12. The price is bytes: t = 0 reads only the first halves, t = 1 only the
+// second, t = 2 both, so the stack is read twice in all instead of once.
+// ---------------------------------------------------------------------------
+template <int W>
+__device__ __forceinline__ void gkr_value(uint32_t (&v)[W], const uint32_t* __restrict__ a_ptr,
+                                          long long half, int t, const Modulus<W>& m) {
+  if (t == 0) {
+    zk::load_words<W>(v, a_ptr);
+  } else if (t == 1) {
+    zk::load_words<W>(v, a_ptr + half * W);
+  } else {
+    uint32_t a[W], b[W], d[W];
+    zk::load_words<W>(a, a_ptr);
+    zk::load_words<W>(b, a_ptr + half * W);
+    zk::sub_mod<W>(d, b, a, m);
+    zk::add_mod<W>(v, b, d, m);
+  }
+}
+
+template <int W>
+__global__ void __launch_bounds__(kThreads)
+gkr_round_kernel(const uint32_t* __restrict__ tables, uint64_t* __restrict__ partials,
+                 long long half, const Modulus<W> m) {
+  const int t = blockIdx.y;
+  const long long size = 2 * half;
+  uint64_t acc[W];
+#pragma unroll
+  for (int j = 0; j < W; ++j) acc[j] = 0;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < half; i += stride) {
+    uint32_t prod[2][W];
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      uint32_t x[W], y[W];
+      gkr_value<W>(x, tables + ((2 * p + 0) * size + i) * W, half, t, m);
+      gkr_value<W>(y, tables + ((2 * p + 1) * size + i) * W, half, t, m);
+      zk::mont_mul<W>(prod[p], x, y, m);
+    }
+    uint32_t term[W];
+    zk::add_mod<W>(term, prod[0], prod[1], m);
+#pragma unroll
+    for (int j = 0; j < W; ++j) acc[j] += term[j];
+  }
+  block_reduce_store<W>(acc, partials + ((size_t)t * gridDim.x + blockIdx.x) * W);
+}
+
+// ---------------------------------------------------------------------------
 // launchers
 // ---------------------------------------------------------------------------
 int blocks_for(long long n, int cap) {
@@ -260,6 +319,17 @@ int launch_fold_and_halves(const void* table, const void* r, void* out, void* pa
   return (int)cudaGetLastError();
 }
 
+template <int W>
+int launch_gkr_round(const void* tables, void* partials, void* rows, long long size, int nb,
+                     const uint32_t* p, uint32_t n0, cudaStream_t s) {
+  gkr_round_kernel<W><<<dim3(nb, 3), kThreads, 0, s>>>(
+      (const uint32_t*)tables, (uint64_t*)partials, size / 2, make_modulus<W>(p, n0));
+  int err = (int)cudaGetLastError();
+  if (err) return err;
+  finish_rows_kernel<W><<<3, kThreads, 0, s>>>((const uint64_t*)partials, nb, (uint32_t*)rows);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 #define ZK_DISPATCH_W(W, CALL8, CALL12) \
@@ -303,6 +373,14 @@ int zk_fold_and_halves(const void* table, const void* r, void* out, void* partia
   cudaStream_t s = (cudaStream_t)stream;
   ZK_DISPATCH_W(W, launch_fold_and_halves<8>(table, r, out, partials, rows, size, nb, p, n0, s),
                 launch_fold_and_halves<12>(table, r, out, partials, rows, size, nb, p, n0, s));
+}
+
+// tables: (2, 2, size, W); partials: (3, nb, W) uint64 scratch; rows: (3, W + 1) uint32
+int zk_gkr_round(const void* tables, void* partials, void* rows, long long size, int nb, int W,
+                 const uint32_t* p, uint32_t n0, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  ZK_DISPATCH_W(W, launch_gkr_round<8>(tables, partials, rows, size, nb, p, n0, s),
+                launch_gkr_round<12>(tables, partials, rows, size, nb, p, n0, s));
 }
 
 }  // extern "C"

@@ -1,6 +1,6 @@
 """The sumcheck / multilinear hot loops: CUDA kernel wrappers and plain versions.
 
-The counterpart of ``zktpu/field/pallas_kernels.py``. Four functions, each with
+The counterpart of ``zktpu/field/pallas_kernels.py``. Five functions, each with
 a hand-written CUDA kernel (``csrc/sumcheck_kernels.cu``) and, beside it, a plain
 PyTorch version built on ``torch_backend`` that computes the same words:
 
@@ -10,12 +10,14 @@ PyTorch version built on ``torch_backend`` that computes the same words:
   * ``halves_sums``     -- [sum(first half), sum(second half)] as lazy rows
   * ``fold_and_halves`` -- fold at r AND the folded table's half-sums in the same
                            pass (what a sumcheck round actually needs)
+  * ``gkr_round``       -- the three round-polynomial evaluations of the GKR
+                           f(b,c) sum of two 2-factor products, as lazy rows
 
 Dispatch is by where the tensor lies and by nothing else: a CPU tensor goes to
 the plain version, a CUDA tensor goes to the kernel or the call raises. There is
 no fallback and no switch. The kernels take every power-of-two size from 2 up.
 
-Lazy rows: the two summing kernels leave the modular reduction to the caller.
+Lazy rows: the three summing kernels leave the modular reduction to the caller.
 They return exact *integer* sums of the Montgomery words as ``W + EXTRA_WORDS``
 clean 32-bit words per row (the same integers as the reference's ``N + 2`` digit
 rows); ``lazy_rows_to_ints`` or ``sumcheck.fused._canonicalize_rows`` reduce them.
@@ -36,11 +38,11 @@ from .torch_backend import FieldCtx
 
 #: extra high words on lazy sum rows (headroom for tables below 2^31 entries)
 EXTRA_WORDS = 1
-#: cap on the per-half block count of the summing kernels (and the rows of their
-#: per-block partials): enough blocks to fill the card several times over
+#: cap on the block count per output row of the summing kernels (and the rows of
+#: their per-block partials): enough blocks to fill the card several times over
 MAX_SUM_BLOCKS = 1024
 
-KERNEL_NAMES = ("mont_mul", "fold", "halves_sums", "fold_and_halves")
+KERNEL_NAMES = ("mont_mul", "fold", "halves_sums", "fold_and_halves", "gkr_round")
 #: kernel name -> launches made by its wrapper since the last reset
 launches: dict[str, int] = {name: 0 for name in KERNEL_NAMES}
 
@@ -102,6 +104,20 @@ def fold_and_halves_plain(ctx: FieldCtx, table, r):
     return folded, halves_sums_plain(ctx, folded)
 
 
+def gkr_round_plain(ctx: FieldCtx, tables):
+    """(2, 2, size, W) product stack -> (3, W+1) lazy rows of
+    y_t = sum_{i < size/2} sum_p prod_f (a + t*(b - a)) for t = 0, 1, 2, with
+    a, b the two halves of each table; t = 2 is b + (b - a), no product by t."""
+    half = tables.shape[2] // 2
+    a, b = tables[:, :, :half], tables[:, :, half:]
+    v2 = fb.add(ctx, b, fb.sub(ctx, b, a))
+    rows = []
+    for vals in (a, b, v2):
+        prod = fb.mont_mul(ctx, vals[:, 0], vals[:, 1])
+        rows.append(_lazy_sum(fb.add(ctx, prod[0], prod[1])))
+    return torch.stack(rows)
+
+
 # ----------------------------------------------------------------------
 # the kernel library
 # ----------------------------------------------------------------------
@@ -116,6 +132,7 @@ _SIGNATURES = {
     "zk_fold_and_halves": [
         _P, _P, _P, _P, _P, _LL, ctypes.c_int, ctypes.c_int, _P, ctypes.c_uint32, _P,
     ],
+    "zk_gkr_round": [_P, _P, _P, _LL, ctypes.c_int, ctypes.c_int, _P, ctypes.c_uint32, _P],
 }
 
 
@@ -164,9 +181,9 @@ def _stream(ctx: FieldCtx) -> int:
     return torch.cuda.current_stream(ctx.device).cuda_stream
 
 
-def _sum_blocks(lib, per_half: int) -> int:
+def _sum_blocks(lib, per_row: int) -> int:
     threads = lib.zk_block_threads()
-    return max(1, min(-(-per_half // threads), MAX_SUM_BLOCKS))
+    return max(1, min(-(-per_row // threads), MAX_SUM_BLOCKS))
 
 
 # ----------------------------------------------------------------------
@@ -174,20 +191,20 @@ def _sum_blocks(lib, per_half: int) -> int:
 # ----------------------------------------------------------------------
 
 def mont_mul(ctx: FieldCtx, a, b):
-    """Elementwise a*b*R^{-1} mod p over a (size, W) table ``a`` and ``b``,
-    which is a table of the same shape or one (W,) element for every row."""
+    """Elementwise a*b*R^{-1} mod p over (..., W) tables ``a`` and ``b``; ``b``
+    has ``a``'s shape or is one (W,) element that multiplies every row."""
     _check(ctx, "mont_mul a", a)
-    if a.dim() != 2:
-        raise ValueError("mont_mul: expected a (size, W) table")
-    _check(ctx, "mont_mul b", b, a.shape if b.dim() != 1 else (ctx.num_words,))
+    one_element = b.dim() == 1 and a.dim() != 1
+    _check(ctx, "mont_mul b", b, (ctx.num_words,) if one_element else a.shape)
     if a.device.type == "cpu":
         return mont_mul_plain(ctx, a, b)
     lib = library()
     out = torch.empty_like(a)
     with torch.cuda.device(ctx.device):
         err = lib.zk_mont_mul(
-            a.data_ptr(), b.data_ptr(), out.data_ptr(), a.shape[0],
-            ctx.num_words if b.dim() == 2 else 0, ctx.num_words, ctx.p_words_c, ctx.n0_prime32, _stream(ctx),
+            a.data_ptr(), b.data_ptr(), out.data_ptr(), a.numel() // ctx.num_words,
+            0 if one_element else ctx.num_words, ctx.num_words, ctx.p_words_c, ctx.n0_prime32,
+            _stream(ctx),
         )
     _raise_on(err, "mont_mul")
     launches["mont_mul"] += 1
@@ -197,14 +214,12 @@ def mont_mul(ctx: FieldCtx, a, b):
 def to_mont(ctx: FieldCtx, a):
     """(..., W) words -> Montgomery domain, through ``mont_mul`` by R^2: one
     launch on the card, whatever the batch. Takes unreduced words (< R)."""
-    flat = a.reshape(-1, ctx.num_words)
-    return mont_mul(ctx, flat, ctx.r2).reshape(a.shape)
+    return mont_mul(ctx, a.reshape(-1, ctx.num_words), ctx.r2).reshape(a.shape)
 
 
 def from_mont(ctx: FieldCtx, a):
     """(..., W) Montgomery words -> canonical words, through ``mont_mul`` by 1."""
-    flat = a.reshape(-1, ctx.num_words)
-    return mont_mul(ctx, flat, ctx.one_plain).reshape(a.shape)
+    return mont_mul(ctx, a.reshape(-1, ctx.num_words), ctx.one_plain).reshape(a.shape)
 
 
 def fold(ctx: FieldCtx, table, r):
@@ -280,3 +295,28 @@ def fold_and_halves(ctx: FieldCtx, table, r):
     _raise_on(err, "fold_and_halves")
     launches["fold_and_halves"] += 1
     return out, rows
+
+
+def gkr_round(ctx: FieldCtx, tables):
+    """Lazy rows (3, W+1) of the degree-2 GKR round evaluations y_0, y_1, y_2 of
+    a (2, 2, size, W) stack (product, factor, entry, word); reduce with
+    ``lazy_rows_to_ints`` or ``sumcheck.fused._canonicalize_rows``."""
+    _check(ctx, "gkr_round tables", tables)
+    if tables.dim() != 4 or tuple(tables.shape[:2]) != (2, 2):
+        raise ValueError("gkr_round: expected a (2, 2, size, W) stack")
+    size, w = tables.shape[2:]
+    _check_size("gkr_round", size)
+    if tables.device.type == "cpu":
+        return gkr_round_plain(ctx, tables)
+    lib = library()
+    nb = _sum_blocks(lib, size // 2)
+    partials = torch.empty((3, nb, w), dtype=torch.int64, device=tables.device)
+    rows = torch.empty((3, w + EXTRA_WORDS), dtype=torch.int32, device=tables.device)
+    with torch.cuda.device(ctx.device):
+        err = lib.zk_gkr_round(
+            tables.data_ptr(), partials.data_ptr(), rows.data_ptr(), size, nb, w,
+            ctx.p_words_c, ctx.n0_prime32, _stream(ctx),
+        )
+    _raise_on(err, "gkr_round")
+    launches["gkr_round"] += 1
+    return rows

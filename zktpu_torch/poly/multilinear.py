@@ -36,12 +36,13 @@ def fold_bit(ctx: FieldCtx, table, bit: int, value):
 
 def tensor_op(ctx: FieldCtx, a, b, op: str):
     """tensor_add_mul_polynomials: out[i*|B| + j] = op(a_i, b_j)."""
+    shape = (a.shape[0], b.shape[0], ctx.num_words)
     a2 = a[:, None, :]
     b2 = b[None, :, :]
     if op == "add":
         out = fb.add(ctx, a2, b2)
     elif op == "mul":
-        out = fb.mont_mul(ctx, a2, b2)
+        out = fk.mont_mul(ctx, a2.expand(shape).contiguous(), b2.expand(shape).contiguous())
     else:
         raise ValueError(op)
     return out.reshape(a.shape[0] * b.shape[0], ctx.num_words)

@@ -75,38 +75,47 @@ def _digest_to_mont(ctx: FieldCtx, digest_lanes):
     return fk.to_mont(ctx, kd.lanes_to_limbs(digest_lanes))
 
 
-def _tail_block_pad(ctx: FieldCtx, tail_len: int) -> torch.Tensor:
-    """Padding lanes of the round-0 absorb (static layout): prefix tail ||
-    ROUND_ELEMS field elements || 0x01 .. 0x80."""
-    total = tail_len + ROUND_ELEMS * ctx.spec.byte_len
-    nblocks = total // kd.RATE + 1
-    pad = np.zeros(kd.RATE_LANES * nblocks, np.int64)
+def _tail_block_pad(ctx: FieldCtx, tail_len: int, num_elems: int = ROUND_ELEMS,
+                    nblocks: int | None = None) -> np.ndarray:
+    """Padding lanes of a first absorb (static layout, host array): prefix tail
+    || ``num_elems`` field elements || 0x01 .. 0x80. ``nblocks`` lays the result
+    out over more blocks than the content needs (the lanes past its last block
+    stay zero), so layouts of different lengths can share one shape."""
+    total = tail_len + num_elems * ctx.spec.byte_len
+    used = total // kd.RATE + 1
+    pad = np.zeros(kd.RATE_LANES * (used if nblocks is None else nblocks), np.int64)
     pad[total // 8] ^= 0x01
-    pad[-1] ^= _TOP_BIT
-    return torch.from_numpy(pad).to(ctx.device)
+    pad[kd.RATE_LANES * used - 1] ^= _TOP_BIT
+    return pad
 
 
-def _round_pad(ctx: FieldCtx) -> torch.Tensor:
-    """Padding lanes of a steady-state round, over the whole 25-lane state:
-    digest(32B) || ROUND_ELEMS elements || 0x01 .. 0x80 in one block."""
-    nlanes = 4 + ROUND_ELEMS * ctx.spec.byte_len // 8
+def _round_pad(ctx: FieldCtx, num_elems: int = ROUND_ELEMS) -> np.ndarray:
+    """Padding lanes of a steady-state round, over the whole 25-lane state (host
+    array): digest(32B) || ``num_elems`` elements || 0x01 .. 0x80 in one block."""
+    nlanes = 4 + num_elems * ctx.spec.byte_len // 8
     if nlanes > kd.RATE_LANES - 1:
         raise ValueError("round content must fit one Keccak block")
     pad = np.zeros(25, np.int64)
     pad[nlanes] = 0x01
     pad[kd.RATE_LANES - 1] ^= _TOP_BIT
-    return torch.from_numpy(pad).to(ctx.device)
+    return pad
 
 
-def _absorb_tail_block(ctx: FieldCtx, state, tail_lanes, canon, pad):
-    """Round-0 absorb: prefix tail || canon's field elements || padding
-    (``canon`` is (k, W) canonical word rows; ``pad`` from ``_tail_block_pad``)."""
+def _tail_content(ctx: FieldCtx, tail_lanes, canon, pad):
+    """Padded lanes of a first absorb: prefix tail || canon's field elements ||
+    zeros, xor ``pad`` (``canon`` is (k, W) canonical word rows; ``pad`` a device
+    copy of ``_tail_block_pad``)."""
     used = tail_lanes.shape[0] + canon.numel() // 2
-    content = torch.cat([
+    return torch.cat([
         tail_lanes,
         kd.limbs_to_lanes(canon).reshape(-1),
         torch.zeros(pad.shape[0] - used, dtype=torch.int64, device=ctx.device),
     ]) ^ pad
+
+
+def _absorb_tail_block(ctx: FieldCtx, state, tail_lanes, canon, pad):
+    """Round-0 absorb: every block of ``_tail_content``."""
+    content = _tail_content(ctx, tail_lanes, canon, pad)
     for b in range(pad.shape[0] // kd.RATE_LANES):
         state = kd.absorb_block(
             state, content[kd.RATE_LANES * b : kd.RATE_LANES * (b + 1)]
@@ -116,7 +125,8 @@ def _absorb_tail_block(ctx: FieldCtx, state, tail_lanes, canon, pad):
 
 def _squeeze_round(ctx: FieldCtx, digest, canon, pad):
     """Steady-state round: one padded block = digest(32B) || canon's elements,
-    absorbed into a fresh (all-zero) sponge, so the block IS the state."""
+    absorbed into a fresh (all-zero) sponge, so the block IS the state. Rows of
+    ``canon`` past the padding's place must be zero."""
     used = digest.shape[0] + canon.numel() // 2
     block = torch.cat([
         digest,
@@ -131,8 +141,8 @@ def _device_prove(ctx: FieldCtx, num_vars: int, state0, tail_lanes, table):
     ``tail_lanes`` are host int64 lane arrays. Returns (num_vars, 2, W)
     canonical word rows of every round polynomial, on the device."""
     # every upload happens here, before the first kernel
-    tail_pad = _tail_block_pad(ctx, 8 * tail_lanes.shape[0])
-    round_pad = _round_pad(ctx)
+    tail_pad = torch.from_numpy(_tail_block_pad(ctx, 8 * tail_lanes.shape[0])).to(ctx.device)
+    round_pad = torch.from_numpy(_round_pad(ctx)).to(ctx.device)
     state = torch.from_numpy(state0).to(ctx.device)
     tail = torch.from_numpy(tail_lanes).to(ctx.device)
 
