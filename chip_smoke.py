@@ -4,14 +4,17 @@
     python3 chip_smoke.py
 
 It needs one CUDA device and ``nvcc``; with no card it exits non-zero at once.
-It builds the CUDA kernels from ``zktpu_torch/csrc/``, then
+It builds the CUDA kernels from ``zktpu_torch/csrc/`` (one ``nvcc`` a source, all
+started together), then
 
   1. prints the card's name and power limit, the build time and the host Keccak
      backend (the pure-Python one is refused);
   2. holds each kernel against its plain PyTorch version on the card, word for
      word (tolerance 0: this is integer arithmetic), for BN254 Fq and BLS12-381
      Fr at sizes from 2 to 2^20 and BLS12-381 Fq (12 words) up to 4096, with
-     edge values and unreduced operands;
+     edge values and unreduced operands; the two G1 point kernels at widths 1,
+     2, 33, 4096 and 2^20 with infinite, equal, opposite and re-scaled operands
+     and coordinates 0 and p - 1 mixed in;
   3. drives the first main path at full size through the public entry points:
      the sumcheck prove + verify of a 2^20-entry BN254 Fq multilinear polynomial
      (``MultilinearPoly.from_ints`` -> ``sumcheck.fused.prove`` ->
@@ -27,8 +30,21 @@ It builds the CUDA kernels from ``zktpu_torch/csrc/``, then
   6. ties the GKR proof: the fused proof equals the host-loop lazy one at 2^20
      inputs, the dense one equals the lazy one at 2^8, the card's equals the
      CPU's at 2^10, and the 2^16 proof hashes to a stored digest;
-  7. times both paths and each kernel (CUDA events, median), beside each
-     kernel's plain version and the least time the card could take.
+  7. times the first two paths and each kernel (CUDA events, median), beside
+     each kernel's plain version and the least time the card could take;
+  8. drives the third main path at full size: the whole GKR proof of the same
+     2^20-input circuit with its multilinear-KZG input proof
+     (``gkr.protocol.prove`` -> ``gkr.protocol.verify``: the SRS comb, the
+     Pippenger MSMs of the commitment and of the 2 x 20 quotients, the host's
+     pairings), reads the launch counts of all seven kernels, and refuses a
+     tampered quotient point, commitment and opened evaluation;
+  9. ties the input proof without a reference run: the taus are known, so the
+     commitment, every quotient commitment and some SRS entries must be the
+     host's scalar multiples of G1; the comb equals the ladder and Pippenger the
+     bit-split MSM at 2^10; a 2^6 proof on the card equals the CPU's; the 2^5
+     proof hashes to a stored digest;
+ 10. times the third path: ``prove`` warm with its stages, ``verify`` with the
+     host's pairings apart, synchronising calls, peak device memory.
 
 Any failed comparison exits non-zero. The last line of the output is one JSON
 object, ``{"ok": true, "device": {...}}``; the line before it lists the kernels
@@ -49,6 +65,9 @@ import numpy as np
 import torch
 
 from zktpu_torch import _build
+from zktpu_torch.curve import bls12_381 as hc
+from zktpu_torch.curve import device as dc
+from zktpu_torch.curve import point_kernels as pk
 from zktpu_torch.field import kernels as fk
 from zktpu_torch.field import torch_backend as fb
 from zktpu_torch.field.host import vec_to_bytes
@@ -59,6 +78,9 @@ from zktpu_torch.gkr import protocol as gkr
 from zktpu_torch.gkr.circuit import ADD, MUL, Circuit
 from zktpu_torch.hash import keccak as hk
 from zktpu_torch.hash import keccak_device as kd
+from zktpu_torch.msm import fixed_base, generator_comb_mul, msm_bitsplit
+from zktpu_torch.msm import pippenger as pp
+from zktpu_torch.pcs.kzg import KZG
 from zktpu_torch.poly.multilinear import MultilinearPoly
 from zktpu_torch.sumcheck import fused, protocol
 from zktpu_torch.transcript import Transcript
@@ -78,7 +100,21 @@ GKR_NUM_VARS = 20
 GKR_DIGEST_INPUTS = 16
 GKR_PROOF_DIGEST_2E16 = "4bb880844e020faf4c5cb2f0fd2fda15c94c0a96144c5b3f136baf3952e54805"
 
+#: the KZG path proves the GKR circuit of 2^GKR_NUM_VARS inputs whole; the
+#: stored digest is over the commitment and the 2 x 5 quotient points of the
+#: seed-7 2^5-input proof, from the port's CPU path (scripts/proof_digest.py
+#: --kzg), which a test pins to the JAX package at that very input
+KZG_DIGEST_INPUTS = 5
+KZG_PROOF_DIGEST_2E5 = "837861d0924181c2346ccf1a1c8a3d51fa09b51d07073b3b8a97a9bb9e0117a7"
+KZG_CPU_TIE_INPUTS = 6
+#: the comb against the ladder, and Pippenger (each window width) against the
+#: bit-split MSM, at this many lanes
+MSM_TIE_LANES = 1 << 10
+MSM_TIE_WINDOWS = (4, 8, 16)
+
 CHECK_SIZES = (2, 4, 64, 4096, 1 << 20)
+POINT_CHECK_WIDTHS = (1, 2, 33, 4096, 1 << 20)
+POINT_TIME_WIDTHS = (1 << 16, 1 << 20)
 TIME_SIZES = (1 << 20, 1 << 24)
 TIMED_RUNS = 10
 
@@ -90,7 +126,10 @@ HBM_BYTES_PER_S = 3.35e12
 INT32_MAD_PER_S = 132 * 64 * 1.98e9
 
 KERNEL_SOURCE = "zktpu_torch/csrc/sumcheck_kernels.cu"
+POINT_KERNEL_SOURCE = "zktpu_torch/csrc/point_kernels.cu"
 REPLACES = {
+    "point_add": "zktpu/curve/pallas_point.py:78",
+    "point_double": "zktpu/curve/pallas_point.py:117",
     "mont_mul": "zktpu/field/pallas_kernels.py:110",
     "fold": "zktpu/field/pallas_kernels.py:140",
     "halves_sums": "zktpu/field/pallas_kernels.py:184",
@@ -160,9 +199,7 @@ def proof_digest(spec, proof) -> str:
     return hk.keccak256(vec_to_bytes(spec, flat)).hex()
 
 
-def gkr_benchmark(num_vars: int):
-    """A halving circuit of 2^num_vars inputs and 2^num_vars - 1 random add/mul
-    gates, and inputs below 2^61, from numpy seed 7: (structure, inputs)."""
+def _gkr_benchmark_draws(num_vars: int):
     rng = np.random.default_rng(7)
     structure = []
     n = 1 << (num_vars - 1)
@@ -170,7 +207,31 @@ def gkr_benchmark(num_vars: int):
         structure.append([ADD if bit else MUL for bit in rng.integers(2, size=n)])
         n //= 2
     inputs = [int(v) for v in rng.integers(0, 1 << 61, size=1 << num_vars)]
-    return structure, inputs
+    return rng, structure, inputs
+
+
+def gkr_benchmark(num_vars: int):
+    """A halving circuit of 2^num_vars inputs and 2^num_vars - 1 random add/mul
+    gates, and inputs below 2^61, from numpy seed 7: (structure, inputs)."""
+    return _gkr_benchmark_draws(num_vars)[1:]
+
+
+def gkr_benchmark_taus(num_vars: int) -> list[int]:
+    """The trusted setup's secrets of the benchmark's input proof: the next
+    ``num_vars`` draws of the same generator, in [2, 2^60)."""
+    rng = _gkr_benchmark_draws(num_vars)[0]
+    return [int(t) for t in rng.integers(2, 1 << 60, size=num_vars)]
+
+
+def kzg_proof_digest(input_proof) -> str:
+    """Keccak-256 over the affine coordinates of the commitment and of every
+    quotient point (r_b's, then r_c's), 48 little-endian bytes each; infinity
+    counts as (0, 0)."""
+    points = [input_proof.commitment] + input_proof.proof[0] + input_proof.proof[1]
+    flat = []
+    for pt in points:
+        flat += [0, 0] if pt is None else [pt[0].n, pt[1].n]
+    return hk.keccak256(vec_to_bytes(BLS12_381_FQ, flat)).hex()
 
 
 def gkr_proof_values(layers_proof) -> list[int]:
@@ -193,13 +254,16 @@ def gkr_proof_digest(spec, layers_proof) -> str:
 
 def resource_usage(log: str, needle: str) -> list[str]:
     """What ``nvcc --resource-usage`` printed for the kernels whose mangled name
-    holds ``needle``: the template's word count, then ptxas's own two lines."""
+    holds ``needle``: the template's word count where it has one, then ptxas's
+    own two lines."""
     lines = log.splitlines()
     out = []
     for i, line in enumerate(lines):
         if "Function properties for" in line and needle in line:
-            words = line.split(needle + "ILi")[1].split("E")[0]
-            out.append(f"{needle}<W={words}>: {lines[i + 1].strip()}; "
+            label = needle
+            if needle + "ILi" in line:
+                label += "<W=" + line.split(needle + "ILi")[1].split("E")[0] + ">"
+            out.append(f"{label}: {lines[i + 1].strip()}; "
                        f"{lines[i + 2].split(':', 1)[1].strip()}")
     return out
 
@@ -713,6 +777,383 @@ def phase_gkr_launches_a_round(ctx) -> None:
 
 
 # ----------------------------------------------------------------------
+# the G1 point kernels: inputs, comparison, times
+# ----------------------------------------------------------------------
+
+def random_scalars(rng, n: int, device):
+    """n random 254-bit scalars as canonical (n, 8) int32 words on the card."""
+    words = rng.integers(0, 1 << 32, size=(n, 8), dtype=np.uint32)
+    words[:, 7] &= 0x3FFFFFFF
+    return fb.words_to_tensor(words, device)
+
+
+def random_points(rng, n: int, device):
+    """n random G1 points with Z != 1: comb multiples of G1, each re-scaled to
+    (X l^2, Y l^3, Z l) by a random l, which is the same point."""
+    fq = fb.get_ctx(BLS12_381_FQ, device)
+    X, Y, Z = generator_comb_mul(random_scalars(rng, n, device))
+    return rescale_points(fq, (X, Y, Z), random_table(fq, rng, n))
+
+
+def rescale_points(fq, pt, lam):
+    X, Y, Z = pt
+    lam2 = fk.mont_mul(fq, lam, lam)
+    return (fk.mont_mul(fq, X, lam2), fk.mont_mul(fq, Y, fk.mont_mul(fq, lam2, lam)),
+            fk.mont_mul(fq, Z, lam))
+
+
+def point_edge_lanes(fq, rng, p1, p2):
+    """Overwrite the first lanes of two batches with the edge cases, as far as
+    the width goes: P == Q in the same and in another Jacobian form, P == -Q,
+    each operand infinite, both infinite, coordinates 0 and p - 1."""
+    n = p1[0].shape[0]
+    p = fq.spec.modulus
+    p1 = tuple(t.clone() for t in p1)
+    p2 = tuple(t.clone() for t in p2)
+    other_form = rescale_points(fq, p1, random_table(fq, rng, n))
+    neg_y = fb.sub(fq, torch.zeros_like(p1[1]), p1[1])
+    # two rows of raw coordinates: (0, p - 1, p - 1) and (0, 1, p - 1)
+    raw = tuple(random_table(fq, rng, 2, edges=pair) for pair in ((0, 0), (p - 1, 1), (p - 1, p - 1)))
+
+    zero = torch.zeros_like(p1[2][0])
+    row = lambda pt, i: tuple(t[i].clone() for t in pt)  # noqa: E731
+    cases = [  # lane -> (left, right) replacements, built only where the lane exists
+        lambda: (None, row(other_form, 0)),                                  # P == Q, other form
+        lambda: (None, (p1[0][1], neg_y[1], p1[2][1])),                      # P == -Q
+        lambda: (None, row(p1, 2)),                                          # P == Q, same words
+        lambda: ((p1[0][3], p1[1][3], zero), None),                          # left infinite
+        lambda: (None, (p2[0][4], p2[1][4], zero)),                          # right infinite
+        lambda: ((p1[0][5], p1[1][5], zero), (p2[0][5], p2[1][5], zero)),    # both infinite
+        lambda: (row(raw, 0), None),                                         # coordinates 0, p - 1
+        lambda: (row(raw, 1), row(raw, 0)),
+    ]
+    for lane, build in enumerate(cases[:n]):
+        left, right = build()
+        for k in range(3):
+            if left is not None:
+                p1[k][lane] = left[k]
+            if right is not None:
+                p2[k][lane] = right[k]
+    return p1, p2
+
+
+def triple_err(a, b) -> int:
+    return max(max_abs_err(x, y) for x, y in zip(a, b))
+
+
+def phase_point_kernels_vs_plain() -> dict[str, int]:
+    fq = fb.get_ctx(BLS12_381_FQ)
+    rng = np.random.default_rng(4)
+    worst = {name: 0 for name in pk.KERNEL_NAMES}
+    for n in POINT_CHECK_WIDTHS:
+        p1, p2 = point_edge_lanes(fq, rng, random_points(rng, n, fq.device),
+                                  random_points(rng, n, fq.device))
+        errs = {
+            "point_add": triple_err(pk.point_add(fq, p1, p2), pk.point_add_plain(fq, p1, p2)),
+            "point_double": triple_err(pk.point_double(fq, p1), pk.point_double_plain(fq, p1)),
+        }
+        torch.cuda.synchronize()
+        if n >= 8:
+            # the edge lanes mean what they should: as affine points
+            got = dc.unpack_points(tuple(t[:6].contiguous() for t in pk.point_add(fq, p1, p2)))
+            a = dc.unpack_points(tuple(t[:6].contiguous() for t in p1))
+            b = dc.unpack_points(tuple(t[:6].contiguous() for t in p2))
+            check(got == [hc.add(x, y) for x, y in zip(a, b)], "edge lanes are not the group law")
+            check(got[1] is None and got[5] is None and got[0] == hc.double(a[0]),
+                  "edge lanes did not meet their cases")
+        say(f"  bls12_381_fq width {n}: " + " ".join(f"{k}={v}" for k, v in errs.items()))
+        for name, err in errs.items():
+            check(err == 0, f"{name} differs from its plain version (width {n})")
+            worst[name] = max(worst[name], err)
+    return worst
+
+
+def point_kernel_work(name: str, n: int):
+    """(bytes moved, 32-bit multiply-adds) of one call over n lanes of finite,
+    unequal points: an addition reads six and writes three 48-byte coordinates
+    for 16 Montgomery products, a doubling three and three for 7. The modular
+    additions and subtractions (no products) are not counted."""
+    mul = 2 * (2 * 12 * 12 + 12)
+    if name == "point_add":
+        return 9 * 48 * n, 16 * mul * n
+    if name == "point_double":
+        return 6 * 48 * n, 7 * mul * n
+    raise ValueError(name)
+
+
+def phase_point_kernel_times() -> dict[int, dict[str, dict]]:
+    fq = fb.get_ctx(BLS12_381_FQ)
+    rng = np.random.default_rng(6)
+    flush = torch.empty(256 << 20, dtype=torch.int8, device=fq.device)
+    out = {}
+    for n in POINT_TIME_WIDTHS:
+        p1, p2 = random_points(rng, n, fq.device), random_points(rng, n, fq.device)
+        cases = {
+            "point_add": (lambda: pk.point_add(fq, p1, p2), lambda: pk.point_add_plain(fq, p1, p2)),
+            "point_double": (lambda: pk.point_double(fq, p1),
+                             lambda: pk.point_double_plain(fq, p1)),
+        }
+        out[n] = {}
+        for name, (kernel, plain) in cases.items():
+            cold = time_events(kernel, TIMED_RUNS, flush)
+            warm = time_events(kernel, TIMED_RUNS)
+            plain_ms = time_events(plain, 3, flush)
+            nbytes, mads = point_kernel_work(name, n)
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = mads / INT32_MAD_PER_S * 1e3
+            rec = {"ms": cold, "warm_ms": warm, "plain_ms": plain_ms,
+                   "bound_ms": max(t_bytes, t_ops),
+                   "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+            out[n][name] = rec
+            say(f"  {name} 2^{n.bit_length() - 1} lanes: {cold:.4f} ms cold L2, {warm:.4f} ms warm, "
+                f"plain {plain_ms:.2f} ms, bound {rec['bound_ms']:.4f} ms by {rec['bound_by']} "
+                f"(bytes {t_bytes:.4f} ms, operations {t_ops:.4f} ms)")
+    # mont_mul at W = 12, the word count of this path's field
+    for n in POINT_TIME_WIDTHS:
+        table = random_table(fq, rng, n)
+        cold = time_events(lambda: fk.mont_mul(fq, table, fq.r2), TIMED_RUNS, flush)
+        plain_ms = time_events(lambda: fk.mont_mul_plain(fq, table, fq.r2), 3, flush)
+        nbytes, mads = kernel_work("mont_mul", n, 12)
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, mads / INT32_MAD_PER_S * 1e3
+        say(f"  mont_mul W=12 2^{n.bit_length() - 1}: {cold:.4f} ms cold L2, plain {plain_ms:.2f} ms, "
+            f"bound {max(t_bytes, t_ops):.4f} ms (bytes {t_bytes:.4f} ms, operations {t_ops:.4f} ms)")
+    return out
+
+
+# ----------------------------------------------------------------------
+# phases 8 to 10: the whole GKR proof with its KZG input proof
+# ----------------------------------------------------------------------
+
+def reset_all_launches() -> None:
+    fk.reset_launches()
+    pk.reset_launches()
+
+
+def all_launches() -> dict[str, int]:
+    return {**fk.launches, **pk.launches}
+
+
+def kzg_expected_doublings(n: int) -> int:
+    """point_double launches of ``prove`` at 2^n inputs: every Pippenger call
+    makes 256 - c in its Horner chain (c the window it picked) and none
+    elsewhere; the commitment is one call over 2^n points, and step k of the two
+    openings one batched call of two segments over 2^(n-1-k). The comb's table
+    is built before the path is driven."""
+    doublings = 256 - pp.pick_window_bits(1 << n)
+    for k in range(n):
+        doublings += 256 - pp.pick_window_bits_multi(2, 1 << (n - 1 - k))
+    return doublings
+
+
+def tampered(whole, **changes):
+    """A shallow copy of a GkrProof whose input proof has ``changes`` applied."""
+    bad = copy.copy(whole)
+    bad.input_proof = copy.copy(whole.input_proof)
+    for name, value in changes.items():
+        setattr(bad.input_proof, name, value)
+    return bad
+
+
+def phase_kzg_main_path(ctx, circuit, inputs, layers_launches):
+    n = GKR_NUM_VARS
+    taus = gkr_benchmark_taus(n)
+    fixed_base._comb_table(ctx.device)  # the one-time table, as a running prover holds it
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launches()
+    t0 = time.time()
+    proof = gkr.prove(circuit, inputs, taus=taus)
+    torch.cuda.synchronize()
+    t_prove = time.time() - t0
+    prove_launches = all_launches()
+    peak = torch.cuda.max_memory_allocated()
+    t0 = time.time()
+    ok = gkr.verify(proof, circuit)
+    torch.cuda.synchronize()
+    t_verify = time.time() - t0
+    launches = all_launches()
+    say(f"  first run: prove {t_prove:.3f}s  verify {t_verify:.3f}s (the host's pairings included)")
+    say(f"  launches on the KZG path: {launches}")
+    say(f"  peak device memory of prove: {peak / 1e9:.3f} GB (torch.cuda.max_memory_allocated)")
+    check(ok, "verify refused the prover's proof")
+
+    kzg = proof.input_proof
+    check(len(kzg.proof[0]) == len(kzg.proof[1]) == n, "wrong number of quotient points")
+    check(all(hc.is_on_curve(pt, hc.B1) for pt in [kzg.commitment] + kzg.proof[0] + kzg.proof[1]),
+          "a proof point is not on the curve")
+    want = kzg_expected_doublings(n)
+    check(prove_launches["point_double"] == want == launches["point_double"],
+          f"point_double launches {prove_launches['point_double']} != {want}")
+    # the comb's 31 additions, the n folds of the basis chain, and in each of the
+    # 1 + n Pippenger calls at least one compaction round, the densifying round
+    # and the Horner chain's additions; the compaction's round count follows the data
+    check(prove_launches["point_add"] >= 31 + n + (1 + n) * (2 + 256 // 16 - 1),
+          f"too few point_add launches: {prove_launches['point_add']}")
+    walk = gkr_expected_launches(n)
+    check(all(launches[name] >= walk[name] for name in walk),
+          "the full proof launched the layer walk's kernels less often than the walk alone")
+    check(launches["gkr_round"] == walk["gkr_round"] == layers_launches["gkr_round"],
+          "gkr_round launches differ from the layer walk's")
+
+    p = ctx.spec.modulus
+    bad_point = hc.add(kzg.proof[0][n // 2], hc.G1_GEN)
+    quotients = list(kzg.proof[0])
+    quotients[n // 2] = bad_point
+    t0 = time.time()
+    check(not gkr.verify(tampered(proof, proof=[quotients, kzg.proof[1]]), circuit),
+          "a tampered quotient point was accepted")
+    check(not gkr.verify(tampered(proof, commitment=hc.add(kzg.commitment, hc.G1_GEN)), circuit),
+          "a tampered commitment was accepted")
+    check(not gkr.verify(
+        tampered(proof, opened_evals=[(kzg.opened_evals[0] + 1) % p, kzg.opened_evals[1]]), circuit),
+        "a tampered opened evaluation was accepted")
+    say(f"  tampered quotient point, commitment and opened evaluation refused "
+        f"({time.time() - t0:.1f}s, the first two by the host's pairings)")
+    return proof, taus, launches
+
+
+def eq_at(taus: list[int], index: int) -> int:
+    """eq_x(taus) at the MSB-first vertex ``index``."""
+    p = BLS12_381_FR.modulus
+    out = 1
+    for k, tau in enumerate(taus):
+        bit = (index >> (len(taus) - 1 - k)) & 1
+        out = out * (tau if bit else 1 - tau) % p
+    return out
+
+
+def same_input_proof(a, b) -> bool:
+    return (a.commitment == b.commitment and a.proof == b.proof
+            and list(a.opened_evals) == list(b.opened_evals))
+
+
+def phase_kzg_ties(ctx, inputs, proof, taus, layers_proved) -> None:
+    n = GKR_NUM_VARS
+    kzg = proof.input_proof
+    check(gkr_proof_values(gkr.LayersProof(proof, layers_proved.r_b, layers_proved.r_c,
+                                           tuple(kzg.opened_evals)))
+          == gkr_proof_values(layers_proved), "the full proof's layer walk differs from prove_layers'")
+    say("  layer walk of prove == prove_layers; opened evaluations == its input evaluations")
+
+    input_poly = MultilinearPoly.from_ints(ctx, inputs)
+    t0 = time.time()
+    check(kzg.commitment == hc.multiply(hc.G1_GEN, input_poly.evaluate_int(taus)),
+          "the commitment is not input_poly(taus) * G1")
+    for side, point in ((0, layers_proved.r_b), (1, layers_proved.r_c)):
+        quotients = kzg.kzg_setup._quotients(kzg.opened_evals[side], point, input_poly)
+        for k, q in enumerate(quotients):
+            q_at_tau = MultilinearPoly(ctx, fk.to_mont(ctx, q)).evaluate_int(taus[k + 1:])
+            want = hc.multiply(hc.G1_GEN, q_at_tau) if q_at_tau else None
+            check(kzg.proof[side][k] == want, f"quotient {k} of opening {side} is not q_k(taus) * G1")
+    say(f"  commitment == input_poly(taus) * G1; all {2 * n} quotient commitments == "
+        f"q_k(tau_k+1..) * G1 by the host's scalar multiplication ({time.time() - t0:.1f}s)")
+
+    rows = sorted({0, 1, 12345 % (1 << n), (1 << n) // 3, (1 << n) - 1})
+    idx = torch.tensor(rows, device=ctx.device)
+    entries = dc.unpack_points(dc.gather_pt(kzg.kzg_setup.g1_lagrange_basis, idx))
+    check(entries == [hc.multiply(hc.G1_GEN, eq_at(taus, i)) for i in rows],
+          "an SRS entry is not eq_i(taus) * G1")
+    say(f"  SRS entries {rows} == eq_i(taus) * G1")
+
+    rng = np.random.default_rng(8)
+    lanes = MSM_TIE_LANES
+    scalars = random_scalars(rng, lanes, ctx.device)
+    before = dict(pk.launches)
+    comb = generator_comb_mul(scalars)
+    check(pk.launches["point_add"] - before["point_add"] == fixed_base.COMB_W - 1
+          and pk.launches["point_double"] == before["point_double"], "the comb's launch counts")
+    before = dict(pk.launches)
+    ladder = dc.batch_generator_mul(scalars)
+    check(pk.launches["point_double"] - before["point_double"] == 255
+          and pk.launches["point_add"] - before["point_add"] == 255, "the ladder's launch counts")
+    check(dc.unpack_points(comb) == dc.unpack_points(ladder), f"comb != ladder at {lanes} lanes")
+    say(f"  comb == ladder at {lanes} lanes; the comb made {fixed_base.COMB_W - 1} additions "
+        "and no doubling, the ladder 255 of each")
+    weights = random_scalars(rng, lanes, ctx.device)
+    bitsplit = dc.unpack_points(tuple(t[None] for t in msm_bitsplit(comb, weights)))
+    for c in MSM_TIE_WINDOWS:
+        before = pk.launches["point_double"]
+        got = pp.msm_pippenger(comb, weights, c)
+        check(pk.launches["point_double"] - before == 256 - c, f"Horner doublings at c={c}")
+        check(dc.unpack_points(tuple(t[None] for t in got)) == bitsplit,
+              f"Pippenger (c={c}) != bit-split at {lanes} points")
+    say(f"  Pippenger (c in {MSM_TIE_WINDOWS}) == bit-split MSM at {lanes} points; "
+        "256 - c doublings a call")
+
+    structure, digest_inputs = gkr_benchmark(KZG_DIGEST_INPUTS)
+    small = gkr.prove(Circuit(ctx, structure), digest_inputs,
+                      taus=gkr_benchmark_taus(KZG_DIGEST_INPUTS))
+    digest = kzg_proof_digest(small.input_proof)
+    say(f"  2^{KZG_DIGEST_INPUTS} input proof digest {digest}")
+    check(digest == KZG_PROOF_DIGEST_2E5,
+          f"input proof digest differs from the stored {KZG_PROOF_DIGEST_2E5}")
+
+    structure, tie_inputs = gkr_benchmark(KZG_CPU_TIE_INPUTS)
+    tie_taus = gkr_benchmark_taus(KZG_CPU_TIE_INPUTS)
+    on_card = gkr.prove(Circuit(ctx, structure), tie_inputs, taus=tie_taus)
+    cpu_ctx = fb.get_ctx(ctx.spec, device="cpu")
+    t0 = time.time()
+    on_cpu = gkr.prove(Circuit(cpu_ctx, structure), tie_inputs, taus=tie_taus)
+    check(same_input_proof(on_card.input_proof, on_cpu.input_proof),
+          f"2^{KZG_CPU_TIE_INPUTS} input proof on the card differs from the CPU's")
+    say(f"  2^{KZG_CPU_TIE_INPUTS} input proof on the card == on the CPU "
+        f"(the CPU's plain path took {time.time() - t0:.1f}s)")
+
+
+def timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.time()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.time() - t0
+
+
+def phase_kzg_times(ctx, circuit, inputs, proof, taus) -> None:
+    n = GKR_NUM_VARS
+    proves = []
+    for _ in range(3):
+        again, t = timed(lambda: gkr.prove(circuit, inputs, taus=taus))
+        proves.append(t)
+    check(same_input_proof(again.input_proof, proof.input_proof), "a warm proof differs from the first")
+    say(f"  warm GKR 2^{n} inputs: prove {statistics.median(proves):.4f}s (median of 3, host clock, "
+        f"synchronised; runs {' '.join(f'{t:.3f}' for t in proves)})")
+
+    # the stages, each alone and synchronised
+    (layers, input_poly), t_walk = timed(
+        lambda: gkr._walk_layers(circuit, inputs, None, None, lambda label: None))
+    kzg, t_setup = timed(lambda: KZG.for_poly(input_poly, taus))
+    (o_b, o_c), t_open = timed(
+        lambda: (kzg.open(layers.r_b, input_poly), kzg.open(layers.r_c, input_poly)))
+    _, t_commit = timed(lambda: kzg.commit(input_poly))
+    _, t_chain = timed(kzg.collapsed_bases)
+    quotients, t_quot = timed(lambda: (kzg._quotients(o_b, layers.r_b, input_poly),
+                                       kzg._quotients(o_c, layers.r_c, input_poly)))
+    _, t_msms = timed(lambda: kzg._commit_quotients(*quotients))
+    total = t_walk + t_setup + t_open + t_commit + t_chain + t_quot + t_msms
+    say(f"  stages of prove, each alone: layer walk {t_walk:.3f}s, KZG set-up (eq table, comb, "
+        f"g2 taus on the host) {t_setup:.3f}s, opens {t_open:.3f}s, commit MSM {t_commit:.3f}s, "
+        f"basis chain {t_chain:.3f}s, quotient tables {t_quot:.3f}s, quotient MSMs {t_msms:.3f}s; "
+        f"sum {total:.3f}s")
+
+    t0 = time.time()
+    walked = gkr.verify_layers(proof, circuit, tuple(proof.input_proof.opened_evals))
+    torch.cuda.synchronize()
+    t_layers = time.time() - t0
+    t0 = time.time()
+    kp = proof.input_proof
+    check(KZG.verify(kp.commitment, kp.opened_evals[0], kp.proof[0], walked.r_b,
+                     kp.kzg_setup.g2_taus), "KZG.verify refused the opening at r_b")
+    t_pair = 2 * (time.time() - t0)
+    say(f"  verify: layer walk {t_layers:.3f}s on the card, pairings {t_pair:.3f}s on the host "
+        f"(two openings of {n} + 1 Miller loops and one final exponentiation each; one timed, doubled)")
+
+    _, syncs = count_syncs(lambda: gkr.prove(circuit, inputs, taus=taus))
+    _, syncs_kzg = count_syncs(lambda: kzg.commit_with_proof_pair(
+        (o_b, layers.r_b), (o_c, layers.r_c), input_poly))
+    say(f"  synchronising calls: prove {syncs}, of which commit + both proofs {syncs_kzg}")
+
+
+# ----------------------------------------------------------------------
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -722,16 +1163,24 @@ def main() -> int:
     gpu = gpu_line()
     say(f"[1] device: {gpu}")
     say(f"    torch {torch.__version__}, CUDA {torch.version.cuda}")
+    t0 = time.time()
+    _build.build_cuda_libraries(["sumcheck_kernels", "point_kernels"])
     fk.library()
-    say(f"    kernels built from {KERNEL_SOURCE} in "
-        f"{_build.build_seconds['sumcheck_kernels']:.1f}s (0.0 = already built)")
+    pk.library()
+    say(f"    kernels built from {KERNEL_SOURCE} ({_build.build_seconds['sumcheck_kernels']:.1f}s) "
+        f"and {POINT_KERNEL_SOURCE} ({_build.build_seconds['point_kernels']:.1f}s), side by side "
+        f"in {time.time() - t0:.1f}s (0.0 = already built)")
     for line in resource_usage(_build.build_log["sumcheck_kernels"], "gkr_round_kernel"):
         say(f"    {line}")
+    for needle in ("point_add_kernel", "point_double_kernel"):
+        for line in resource_usage(_build.build_log["point_kernels"], needle):
+            say(f"    {line}")
     say(f"    host Keccak backend: {hk.backend()}")
     check(hk.backend() == "c", "the host Keccak fell back to pure Python")
 
     say("[2] each kernel against its plain PyTorch version (exact)")
     errs = phase_kernels_vs_plain()
+    errs.update(phase_point_kernels_vs_plain())
 
     ctx = fb.get_ctx(BN254_FQ)
     say(f"[3] main path: 2^{NUM_VARS} BN254 Fq sumcheck, from_ints -> fused.prove -> verify")
@@ -755,14 +1204,31 @@ def main() -> int:
     phase_gkr_times(gctx, circuit, inputs, proved)
     torch.cuda.empty_cache()
     times = phase_kernel_times(ctx)
+
+    torch.cuda.empty_cache()
+    say(f"[8] KZG path: the whole proof of the same 2^{GKR_NUM_VARS}-input circuit, "
+        "gkr.protocol.prove -> gkr.protocol.verify")
+    full_proof, taus, kzg_launches = phase_kzg_main_path(gctx, circuit, inputs, gkr_launches)
+
+    say("[9] the input proof's ties")
+    phase_kzg_ties(gctx, inputs, full_proof, taus, proved)
+
+    say("[10] times of the KZG path")
+    phase_kzg_times(gctx, circuit, inputs, full_proof, taus)
+    del full_proof
+    torch.cuda.empty_cache()
+    point_times = phase_point_kernel_times()
     phase_gkr_launches_a_round(gctx)
 
     kernels = []
-    for name in fk.KERNEL_NAMES:
-        rec = times[1 << NUM_VARS][name]
+    for name in fk.KERNEL_NAMES + pk.KERNEL_NAMES:
+        if name in pk.KERNEL_NAMES:
+            rec, source = point_times[1 << GKR_NUM_VARS][name], POINT_KERNEL_SOURCE
+        else:
+            rec, source = times[1 << NUM_VARS][name], KERNEL_SOURCE
         kernels.append({
-            "name": name, "route": "cuda", "source": KERNEL_SOURCE,
-            "replaces": REPLACES[name], "launches": launches[name] + gkr_launches[name],
+            "name": name, "route": "cuda", "source": source, "replaces": REPLACES[name],
+            "launches": launches.get(name, 0) + gkr_launches.get(name, 0) + kzg_launches[name],
             "max_abs_err": errs[name], "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"], "library_ms": None,
         })

@@ -5,6 +5,7 @@ Run on a machine with one CUDA device, from the repo's root:
 
     python3 scripts/profile_prove.py [--num-vars 20]         # the plain sumcheck
     python3 scripts/profile_prove.py --gkr [--num-vars 20]   # the GKR layer walk
+    python3 scripts/profile_prove.py --kzg [--num-vars 20]   # the KZG input proof
 
 Sumcheck: (1) host-clock times of the prover's stages, each closed by a
 synchronise, and (2) a ``torch.profiler`` summary of one warm prove and one warm
@@ -14,6 +15,11 @@ device's idle share of the wall time, and the kernels that take most of it.
 GKR: the stages of the input layer's fused sumcheck one by one, the whole walk
 layer by layer (the ``ZKTPU_TRACE`` marks of ``prove_layers``), the verifier's
 time, and a profiler summary of one small fused layer.
+
+KZG: the stages of the input proof one by one (set-up, commitment, basis chain,
+quotient tables, each step's batched quotient MSM with its window width), the
+stages inside the commitment MSM, and a profiler summary of that MSM: what share
+of its device time the two point kernels take, and the device's idle share.
 """
 
 from __future__ import annotations
@@ -38,6 +44,9 @@ from zktpu_torch.gkr import lazy as gkr_lazy  # noqa: E402
 from zktpu_torch.gkr import protocol as gkr  # noqa: E402
 from zktpu_torch.gkr.circuit import Circuit  # noqa: E402
 from zktpu_torch.hash import keccak_device as kd  # noqa: E402
+from zktpu_torch.field import kernels as fk  # noqa: E402
+from zktpu_torch.msm import pippenger as pp  # noqa: E402
+from zktpu_torch.pcs.kzg import KZG  # noqa: E402
 from zktpu_torch.poly.multilinear import MultilinearPoly  # noqa: E402
 from zktpu_torch.sumcheck import fused, protocol  # noqa: E402
 from zktpu_torch.transcript import Transcript  # noqa: E402
@@ -154,10 +163,82 @@ def gkr_mode(num_vars: int) -> int:
     return 0
 
 
+def msm_stages(points, scalars, c: int) -> None:
+    """The stages of one Pippenger MSM (one window group), one by one."""
+    num_windows = 256 // c
+    nbuck = (1 << (c - 1)) + 1
+    n = scalars.shape[0]
+    abs_d, signs = timed("digits (_recode_signed)", lambda: pp._recode_signed(scalars, c))
+    fq = pp.dc.fq_ctx(points[0].device)
+    neg_y = timed("0 - Y of the base (plain sub)",
+                  lambda: fb.sub(fq, torch.zeros_like(points[1]), points[1]))
+    skey, pt = timed(f"sort + gathers of {num_windows} x {n} lanes (_presort)",
+                     lambda: pp._presort(points, neg_y, abs_d, signs, nbuck))
+    longest = int(pp._run_rank(skey).max().item()) + 1
+    rounds = max(1, (longest - 1).bit_length())
+    sizes = pp._compaction_schedule(num_windows * n, num_windows * nbuck + 1)[:rounds]
+    sizes += [sizes[-1] if sizes else skey.shape[0]] * (rounds - len(sizes))
+    print(f"  longest bucket run {longest}: {rounds} compaction rounds at widths {sizes}")
+    for l_next in sizes:
+        skey, pt = timed(f"compaction round -> {l_next} lanes",
+                         lambda: pp._compact_round(skey, pt, l_next))
+    buckets = timed("densify", lambda: pp._densify(skey, pt, num_windows, nbuck))
+    per_window = timed(f"bucket reduction ({num_windows} x {nbuck - 1} buckets)",
+                       lambda: pp._weighted_reduce_staged(buckets))
+    timed(f"Horner chain ({256 - c} doublings, {num_windows - 1} additions)",
+          lambda: pp._horner_single(per_window, c))
+
+
+def kzg_mode(num_vars: int) -> int:
+    ctx = fb.get_ctx(BLS12_381_FR)
+    _, inputs = chip_smoke.gkr_benchmark(num_vars)
+    taus = chip_smoke.gkr_benchmark_taus(num_vars)
+    input_poly = MultilinearPoly.from_ints(ctx, inputs)
+    rng_point = [(7 * k + 3) << 40 for k in range(num_vars)]
+    pp.msm_pippenger(*_small_msm(ctx))  # warm: builds the kernels
+    print(f"stages of the KZG input proof at 2^{num_vars} inputs (host clock, synchronised):")
+    kzg = timed("set-up (eq table, comb, g2 taus on the host)",
+                lambda: KZG.for_poly(input_poly, taus))
+    kzg = timed("set-up again (comb table held)", lambda: KZG.for_poly(input_poly, taus))
+    opened = timed("open", lambda: kzg.open(rng_point, input_poly))
+    timed("commit (one MSM + unpack_points)", lambda: kzg.commit(input_poly))
+    bases = timed("basis chain (collapsed_bases)", kzg.collapsed_bases)
+    quotients = timed("quotient tables of one opening",
+                      lambda: kzg._quotients(opened, rng_point, input_poly))
+    for k in range(num_vars):
+        stack = torch.stack([quotients[k], quotients[k]])
+        timed(f"step {k}: batched MSM of 2 x {quotients[k].shape[0]} "
+              f"(c = {pp.pick_window_bits_multi(2, quotients[k].shape[0])})",
+              lambda: pp.msm_pippenger_multi(bases[k], stack))
+    timed("whole commit_with_proof_pair", lambda: kzg.commit_with_proof_pair(
+        (opened, rng_point), (opened, rng_point), input_poly))
+
+    scalars = fk.from_mont(ctx, input_poly.table)
+    c = pp.pick_window_bits(scalars.shape[0])
+    print(f"stages of the commitment MSM (c = {c}):")
+    msm_stages(kzg.g1_lagrange_basis, scalars, c)
+    print("torch.profiler:")
+    profiled("msm_pippenger at full size",
+             lambda: pp.msm_pippenger(kzg.g1_lagrange_basis, scalars))
+    small = 1 << min(num_vars - 1, 6)
+    profiled(f"msm_pippenger_multi of 2 x {small}", lambda: pp.msm_pippenger_multi(
+        bases[num_vars - 1 - small.bit_length() + 1], torch.stack([scalars[:small]] * 2)))
+    return 0
+
+
+def _small_msm(ctx):
+    from zktpu_torch.curve import device as dc
+    from zktpu_torch.msm import generator_comb_mul
+
+    scalars = dc.pack_scalars(list(range(1, 9)), ctx.device)
+    return generator_comb_mul(scalars), scalars
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--num-vars", type=int, default=20)
     ap.add_argument("--gkr", action="store_true", help="profile the GKR layer walk")
+    ap.add_argument("--kzg", action="store_true", help="profile the KZG input proof")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_prove: no CUDA device", file=sys.stderr)
@@ -167,6 +248,8 @@ def main() -> int:
         capture_output=True, text=True, check=True).stdout.strip())
     if args.gkr:
         return gkr_mode(args.num_vars)
+    if args.kzg:
+        return kzg_mode(args.num_vars)
     ctx = fb.get_ctx(BN254_FQ)
     poly = MultilinearPoly.from_ints(ctx, chip_smoke.benchmark_values(args.num_vars))
     proof = fused.prove(poly)  # warm: builds the kernels, caches the host sponge

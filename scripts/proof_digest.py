@@ -8,6 +8,7 @@ card's proof must hash to the same value.
 
     python3 scripts/proof_digest.py [--num-vars 20]      # sumcheck: PROOF_DIGEST_2E20
     python3 scripts/proof_digest.py --gkr [--num-vars 16]  # GKR layers: GKR_PROOF_DIGEST_2E16
+    python3 scripts/proof_digest.py --kzg [--num-vars 5]   # KZG input proof: KZG_PROOF_DIGEST_2E5
 """
 
 from __future__ import annotations
@@ -34,10 +35,23 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--gkr", action="store_true",
                     help="the GKR layer proof of chip_smoke.gkr_benchmark (default 2^16 inputs)")
+    ap.add_argument("--kzg", action="store_true",
+                    help="the KZG input proof of the whole GKR proof of chip_smoke.gkr_benchmark "
+                         "with chip_smoke.gkr_benchmark_taus (default 2^5 inputs, about 2 minutes)")
     ap.add_argument("--num-vars", type=int)
     ap.add_argument("--threads", type=int, default=2)
     args = ap.parse_args()
     torch.set_num_threads(args.threads)
+    if args.kzg:
+        num_vars = args.num_vars or chip_smoke.KZG_DIGEST_INPUTS
+        ctx = fb.get_ctx(BLS12_381_FR, device="cpu")
+        structure, inputs = chip_smoke.gkr_benchmark(num_vars)
+        t0 = time.time()
+        proof = gkr.prove(Circuit(ctx, structure), inputs,
+                          taus=chip_smoke.gkr_benchmark_taus(num_vars))
+        print(f"kzg num_vars={num_vars} cpu prove {time.time() - t0:.1f}s", file=sys.stderr)
+        print(chip_smoke.kzg_proof_digest(proof.input_proof))
+        return 0
     if args.gkr:
         num_vars = args.num_vars or chip_smoke.GKR_DIGEST_INPUTS
         ctx = fb.get_ctx(BLS12_381_FR, device="cpu")

@@ -6,7 +6,9 @@ proof, computed on the CPU); the port's ``prove_layers`` runs dense, lazy and
 fused on the CPU (``device="cpu"``, the kernels' plain versions). Tolerance 0:
 every round polynomial, claimed evaluation, output entry and input evaluation
 is compared as an integer, and ``verify_layers`` must accept zktpu's proof once
-converted and refuse the tampered ones.
+converted and refuse the tampered ones. The port's whole ``prove`` / ``verify``
+(with the KZG input proof) are held against zktpu's in test_torch_gkr_kzg.py and
+test_torch_gkr_kzg_small.py: this file is the longest of the run as it is.
 """
 
 import copy

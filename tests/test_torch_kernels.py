@@ -261,3 +261,37 @@ def test_mont_mul_takes_leading_dimensions(data):
     assert torch.equal(fk.mont_mul(ctx, a3, b3).reshape(SIZE, 8), fk.mont_mul(ctx, a, b))
     assert torch.equal(fk.mont_mul(ctx, a3, ctx.r2).reshape(SIZE, 8), fk.mont_mul(ctx, a, ctx.r2))
     assert torch.equal(fk.mont_mul(ctx, a[5], b[5]), fk.mont_mul(ctx, a, b)[5])
+
+
+def test_point_wrappers_refuse_what_the_kernels_do_not_take():
+    from zktpu_torch.curve import bls12_381 as hc
+    from zktpu_torch.curve import device as dc
+    from zktpu_torch.curve import point_kernels as ptk
+    from zktpu_torch.field.spec import BLS12_381_FQ, BN254_FQ
+
+    ctx = fb.get_ctx(BLS12_381_FQ, device="cpu")
+    a = dc.pack_points([hc.multiply(hc.G1_GEN, k) for k in range(1, 9)], "cpu")
+    b = dc.pack_points([hc.multiply(hc.G1_GEN, k) for k in range(11, 19)], "cpu")
+    ptk.reset_launches()
+    with pytest.raises(TypeError):
+        ptk.point_add(ctx, tuple(t.to(torch.int64) for t in a), b)  # wrong dtype
+    with pytest.raises(TypeError):
+        ptk.point_double(ctx, (a[0], a[1]))  # not a triple
+    with pytest.raises(TypeError):
+        ptk.point_double(ctx, tuple(t.numpy() for t in a))  # not tensors
+    with pytest.raises(ValueError):
+        ptk.point_add(ctx, a, tuple(t[:4].contiguous() for t in b))  # shapes differ
+    with pytest.raises(ValueError):
+        ptk.point_double(ctx, tuple(t[:, :8].contiguous() for t in a))  # not 12 words
+    with pytest.raises(ValueError):
+        ptk.point_add(ctx, tuple(t[::2] for t in a), tuple(t[::2] for t in b))  # not contiguous
+    with pytest.raises(ValueError):
+        ptk.point_double(ctx, tuple(t[:0] for t in a))  # empty batch
+    with pytest.raises(ValueError):
+        ptk.point_double(fb.get_ctx(BN254_FQ, device="cpu"), a)  # not the curve's field
+    with pytest.raises(ValueError):
+        ptk.point_double(ctx, tuple(t.to("meta") for t in a))  # another device than the context's
+    # nothing on the CPU counts as a kernel launch
+    ptk.point_add(ctx, a, b)
+    ptk.point_double(ctx, a)
+    assert ptk.launches == {"point_add": 0, "point_double": 0}

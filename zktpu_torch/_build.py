@@ -24,6 +24,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 
 PKG_DIR = os.path.dirname(os.path.abspath(__file__))
@@ -106,6 +107,18 @@ def cuda_library_path(stem: str) -> str:
     build_log[stem] = _compile([find_nvcc()] + NVCC_FLAGS + ["-I", CSRC_DIR, source], out_path)
     build_seconds[stem] = time.time() - t0
     return out_path
+
+
+def build_cuda_libraries(stems) -> None:
+    """Build the libraries of several ``csrc/<stem>.cu`` at once, one ``nvcc``
+    each, all started together (a thread a compiler: the threads only wait)."""
+    threads = [threading.Thread(target=cuda_library_path, args=(stem,)) for stem in stems]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for stem in stems:
+        cuda_library_path(stem)  # built now: returns at once, or raises what the thread met
 
 
 def cuda_library(stem: str) -> ctypes.CDLL:

@@ -7,7 +7,11 @@ reinterpretation:
   * a field element is ``N`` 16-bit digits, one per uint32 lane, in ``zktpu``,
     and ``N / 2`` little-endian 32-bit words (int32 bit pattern) here;
   * a lazy sum row is ``N + 2`` digits there and ``N / 2 + 1`` words here;
-  * a Keccak lane is a (lo, hi) pair of uint32 there and one int64 here.
+  * a Keccak lane is a (lo, hi) pair of uint32 there and one int64 here;
+  * a batch of Jacobian points is a triple of ``(B, 24)`` digit arrays there (or
+    limb-major ``(24, B)`` inside its MSMs) and a triple of ``(B, 12)`` word
+    tensors here; a host point is a pair of that package's ``FQ`` there and of
+    this package's own ``FQ`` here.
 
 The tests use these so that both packages compute on the same table and are
 compared word for word.
@@ -18,8 +22,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .gkr.protocol import GkrProof
+from .curve import bls12_381 as hc
+from .gkr.protocol import GkrProof, KzgProof
 from .hash.keccak_device import pairs_to_lanes
+from .pcs.kzg import KZG
 from .poly.multilinear import MultilinearPoly
 from .poly.univariate import UnivariatePoly
 from .sumcheck.protocol import GkrSumcheckProof, Proof
@@ -124,14 +130,78 @@ def gkr_sumcheck_proof_from_zktpu(spec, proof) -> GkrSumcheckProof:
     )
 
 
+def points_from_zktpu(jac, limb_major: bool = False) -> tuple:
+    """A Jacobian triple of ``(B, 24)`` digit arrays (``limb_major``: ``(24, B)``)
+    -> this package's triple of ``(B, 12)`` int32 word tensors (CPU)."""
+    out = []
+    for coord in jac:
+        coord = np.asarray(coord)
+        if limb_major:
+            coord = np.swapaxes(coord, -1, -2)
+        out.append(table_from_zktpu(coord))
+    return tuple(out)
+
+
+def points_to_zktpu(jac, limb_major: bool = False) -> tuple:
+    """This package's ``(B, 12)`` word triple -> ``(B, 24)`` uint32 digit arrays
+    (``limb_major``: ``(24, B)``)."""
+    out = tuple(table_to_zktpu(coord) for coord in jac)
+    if limb_major:
+        out = tuple(np.ascontiguousarray(np.swapaxes(coord, -1, -2)) for coord in out)
+    return out
+
+
+def scalars_from_zktpu(digits) -> torch.Tensor:
+    """Canonical ``(..., 16)`` Fr digit arrays -> ``(..., 8)`` word tensor (CPU)."""
+    return table_from_zktpu(digits)
+
+
+def scalars_to_zktpu(words) -> np.ndarray:
+    return table_to_zktpu(words)
+
+
+def host_point_from_zktpu(pt):
+    """A host affine point of ``zktpu.curve.bls12_381`` (G1 or G2, ``None`` for
+    infinity) -> the same point over this package's own field classes."""
+    if pt is None:
+        return None
+
+    def coord(c):
+        if hasattr(c, "coeffs"):
+            return hc.FQ2([int(v) for v in c.coeffs])
+        return hc.FQ(int(c.n))
+
+    return (coord(pt[0]), coord(pt[1]))
+
+
+def kzg_from_zktpu(kzg, device="cpu") -> KZG:
+    """A ``zktpu.pcs.kzg.KZG`` (its basis as arrays, its ``g2_taus``) -> this
+    package's, with the basis on ``device``."""
+    basis = tuple(
+        t.to(device) for t in points_from_zktpu([np.asarray(c) for c in kzg.g1_lagrange_basis])
+    )
+    return KZG(basis, [host_point_from_zktpu(pt) for pt in kzg.g2_taus], int(kzg.num_vars))
+
+
+def kzg_proof_from_zktpu(input_proof, device="cpu") -> KzgProof:
+    """A ``zktpu.gkr.protocol.KzgProof`` -> this package's: the setup, the
+    commitment, both lists of quotient points, both opened evaluations."""
+    return KzgProof(
+        kzg_setup=kzg_from_zktpu(input_proof.kzg_setup, device),
+        commitment=host_point_from_zktpu(input_proof.commitment),
+        proof=[[host_point_from_zktpu(pt) for pt in side] for side in input_proof.proof],
+        opened_evals=[int(v) for v in input_proof.opened_evals],
+    )
+
+
 def gkr_proof_from_zktpu(ctx, proof) -> GkrProof:
-    """The layer walk of a ``zktpu.gkr.protocol.GkrProof`` (output table, every
-    layer's round polynomials, the claimed evaluations) -> this package's
-    ``GkrProof`` on ``ctx.device``. The input proof is not carried over; its two
-    opened evaluations are ``proof.input_proof.opened_evals``."""
+    """A ``zktpu.gkr.protocol.GkrProof`` (output table, every layer's round
+    polynomials, the claimed evaluations, the KZG input proof) -> this
+    package's ``GkrProof`` on ``ctx.device``."""
     table = table_from_zktpu(np.asarray(proof.output_poly.table)).to(ctx.device)
     return GkrProof(
         MultilinearPoly(ctx, table),
         [round_polys_from_zktpu(ctx.spec, layer) for layer in proof.proof_polynomials],
         [(int(o_1), int(o_2)) for o_1, o_2 in proof.claimed_evaluations],
+        kzg_proof_from_zktpu(proof.input_proof, ctx.device),
     )

@@ -1,8 +1,13 @@
-"""GKR prover/verifier: the walk over the circuit's layers.
+"""GKR prover/verifier with a multilinear-KZG input commitment.
 
-The counterpart of the layer walk of ``zktpu/gkr/protocol.py`` (capability
-parity with the reference's gkr/src/gkr_protocol.rs):
+The counterpart of ``zktpu/gkr/protocol.py`` (capability parity with the
+reference's gkr/src/gkr_protocol.rs):
 
+  * ``prove`` (:31-126) is ``prove_layers`` followed by the input proof: the
+    input layer is committed and opened at (r_b, r_c) with multilinear KZG
+    (:92-118, ``pcs/kzg.py``).
+  * ``verify`` (:128-227) is ``verify_layers`` on the proof's two opened
+    evaluations followed by the pairing checks of both openings.
   * ``prove_layers`` (the body of ``prove``, :31-91): evaluate the circuit,
     absorb the output layer, then walk layers output -> input; layer 0 uses the
     f(b,c) polynomial f = add_i(r,b,c)*(w(b)+w(c)) + mul_i(r,b,c)*(w(b)*w(c))
@@ -14,15 +19,13 @@ parity with the reference's gkr/src/gkr_protocol.rs):
     layer identity via the wiring predicates (:294-341). It takes the input
     layer's two evaluations from its caller.
 
-The reference's ``prove`` then commits to the input layer and opens it at r_b
-and r_c with multilinear KZG (:92-118), and its ``verify`` checks those
-openings; that part needs the curve, the MSMs and the pairing, which this
-package does not have yet. ``prove`` and ``verify`` will call these two
-functions before and around it.
+The verifier walks the layers before it pairs: the same verdict as the
+reference's order (openings inside the last layer's step), and a proof whose
+layers fail is refused without the host's pairings.
 
 Field: BLS12-381 Fr. Transcript bytes match the reference exactly; all O(2^n)
-steps (circuit evaluation, wiring tables, sumcheck rounds) run on the device of
-the circuit's field context.
+steps (circuit evaluation, wiring tables, sumcheck rounds, SRS, MSMs) run on the
+device of the circuit's field context; the verifier's pairings run on the host.
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ import torch
 
 from ..field import kernels as fk
 from ..field.spec import BLS12_381_FR
+from ..pcs.kzg import KZG, random_taus
 from ..poly.composed import ProductPoly, SumPoly
 from ..poly.multilinear import MultilinearPoly
 from ..sumcheck import protocol as sumcheck
@@ -48,14 +52,24 @@ FR = BLS12_381_FR
 
 
 @dataclasses.dataclass
+class KzgProof:
+    """Reference ``KzgProof`` (:16-21)."""
+
+    kzg_setup: KZG
+    commitment: object
+    proof: list  # [proof_at_rb, proof_at_rc], each a list of G1 points
+    opened_evals: list  # [w(r_b), w(r_c)]
+
+
+@dataclasses.dataclass
 class GkrProof:
-    """Reference ``GkrProof`` (:24-29). ``input_proof`` is the opening proof of
+    """Reference ``GkrProof`` (:24-29). ``input_proof`` is the ``KzgProof`` of
     the input layer at (r_b, r_c); ``prove_layers`` leaves it ``None``."""
 
     output_poly: MultilinearPoly
     proof_polynomials: list  # per layer: list[UnivariatePoly]
     claimed_evaluations: list  # per non-final layer: (o_1, o_2)
-    input_proof: object = None
+    input_proof: KzgProof | None = None
 
 
 @dataclasses.dataclass
@@ -173,6 +187,24 @@ def _context(circuit: Circuit):
     return circuit.ctx
 
 
+def _stage_marks(ctx):
+    """``mark(label)``: with ``ZKTPU_TRACE=1`` in the environment, print the wall
+    time since the last mark to stderr (on the card after a synchronise, so that
+    a stage is charged its own device work); otherwise nothing."""
+    trace = os.environ.get("ZKTPU_TRACE") == "1"
+    last = [time.time()]
+
+    def mark(label: str) -> None:
+        if trace:
+            if ctx.device.type == "cuda":
+                torch.cuda.synchronize(ctx.device)
+            now = time.time()
+            print(f"    [gkr.prove] {label}: {now - last[0]:.2f}s", file=sys.stderr, flush=True)
+            last[0] = now
+
+    return mark
+
+
 def prove_layers(circuit: Circuit, inputs: list[int], lazy: bool | None = None,
                  fused: bool | None = None) -> LayersProof:
     """Every layer's sumcheck of a GKR proof over BLS12-381 Fr (reference
@@ -184,16 +216,11 @@ def prove_layers(circuit: Circuit, inputs: list[int], lazy: bool | None = None,
     device (``gkr/fused_lazy.py``); defaults to True whenever the lazy path is
     active. With ``ZKTPU_TRACE=1`` in the environment the stages' wall times go
     to stderr."""
-    trace = os.environ.get("ZKTPU_TRACE") == "1"
-    marks = [("start", time.time())]
+    return _walk_layers(circuit, inputs, lazy, fused, _stage_marks(circuit.ctx))[0]
 
-    def mark(label: str) -> None:
-        if trace:
-            marks.append((label, time.time()))
-            prev = marks[-2][1]
-            print(f"    [gkr.prove] {label}: {marks[-1][1]-prev:.2f}s",
-                  file=sys.stderr, flush=True)
 
+def _walk_layers(circuit: Circuit, inputs: list[int], lazy, fused, mark):
+    """The layer walk: (LayersProof, the input polynomial)."""
     ctx = _context(circuit)
     transcript = Transcript(FR)
     if lazy is None:
@@ -265,10 +292,43 @@ def prove_layers(circuit: Circuit, inputs: list[int], lazy: bool | None = None,
             claimed_sum = (alpha * o_1 + beta * o_2) % FR.modulus
             claimed_evaluations.append((o_1, o_2))
 
-    return LayersProof(
+    layers = LayersProof(
         GkrProof(output_poly, proof_polys, claimed_evaluations),
         current_rb, current_rc, (o_1, o_2),
     )
+    return layers, input_poly
+
+
+def prove(circuit: Circuit, inputs: list[int], taus: list[int] | None = None,
+          lazy: bool | None = None, fused: bool | None = None) -> GkrProof:
+    """Full GKR proof over BLS12-381 Fr (reference :31-126): the layer walk
+    (``prove_layers``; ``lazy`` and ``fused`` as there), then the KZG commitment
+    to the input layer and its openings at r_b and r_c, on the device of
+    ``circuit.ctx``. ``taus``: the trusted setup's secrets, from fresh entropy
+    when None (reference :92-103)."""
+    mark = _stage_marks(circuit.ctx)
+    layers, input_poly = _walk_layers(circuit, inputs, lazy, fused, mark)
+
+    if taus is None:
+        taus = random_taus(input_poly.num_vars)
+    kzg_instance = KZG.for_poly(input_poly, taus)
+    mark("KZG setup (SRS comb + g2 taus)")
+    w_b_eval = kzg_instance.open(layers.r_b, input_poly)
+    w_c_eval = kzg_instance.open(layers.r_c, input_poly)
+    mark("KZG opens")
+    commitment, w_b_proof, w_c_proof = kzg_instance.commit_with_proof_pair(
+        (w_b_eval, layers.r_b), (w_c_eval, layers.r_c), input_poly
+    )
+    mark("KZG commit + proofs (batched MSMs)")
+
+    proof = layers.proof
+    proof.input_proof = KzgProof(
+        kzg_setup=kzg_instance,
+        commitment=commitment,
+        proof=[w_b_proof, w_c_proof],
+        opened_evals=[w_b_eval, w_c_eval],
+    )
+    return proof
 
 
 def verify_layers(proof: GkrProof, circuit: Circuit, input_evals,
@@ -334,3 +394,19 @@ def verify_layers(proof: GkrProof, circuit: Circuit, input_evals,
 
     mid = len(challenges) // 2
     return LayersVerifyResult(True, challenges[:mid], challenges[mid:])
+
+
+def verify(proof: GkrProof, circuit: Circuit, lazy: bool | None = None) -> bool:
+    """Reference :128-227: every layer's check (``verify_layers``) on the input
+    proof's opened evaluations, then the KZG pairing check of both openings at
+    the walk's (r_b, r_c). ``lazy`` as in ``verify_layers``."""
+    kzg = proof.input_proof
+    if kzg is None:
+        raise ValueError("the proof carries no input proof (it came from prove_layers)")
+    o_1, o_2 = kzg.opened_evals
+    walked = verify_layers(proof, circuit, (o_1, o_2), lazy=lazy)
+    if not walked.verified:
+        return False
+    g2_taus = kzg.kzg_setup.g2_taus
+    return (KZG.verify(kzg.commitment, o_1, kzg.proof[0], walked.r_b, g2_taus)
+            and KZG.verify(kzg.commitment, o_2, kzg.proof[1], walked.r_c, g2_taus))
