@@ -44,11 +44,24 @@ started together), then
      bit-split MSM at 2^10; a 2^6 proof on the card equals the CPU's; the 2^5
      proof hashes to a stored digest;
  10. times the third path: ``prove`` warm with its stages, ``verify`` with the
-     host's pairings apart, synchronising calls, peak device memory.
+     host's pairings apart, synchronising calls, peak device memory;
+ 11. holds the two NTT kernels against their plain versions on BN254 Fr tables
+     with 0, 1, r - 1 and R mod r entries, forward and inverse twiddles:
+     ``ntt_phase1`` at 1 to 2^22 entries, ``ntt_stage`` at every stage of 2^12,
+     2^20 and 2^22; the card's twiddle table equals the CPU's;
+ 12. drives the fourth main path: ``ntt.ntt`` forward and inverse on 2^20- and
+     2^22-entry tables (values below 2^256 from numpy seed 0, reduced by
+     ``to_mont``), then ``fft_evaluate`` -> ``fft_interpolate`` at 2^20 through
+     host ints; checks the launches of each call, the round trips, four outputs
+     against the host's Horner evaluation, and the card's 2^12 transforms
+     against the CPU's;
+ 13. times both NTT kernels at 2^20 and 2^22 beside their plain versions and
+     bounds, the twiddle build, warm transforms, and ``fft_evaluate`` /
+     ``fft_interpolate`` with their host packing apart.
 
 Any failed comparison exits non-zero. The last line of the output is one JSON
-object, ``{"ok": true, "device": {...}}``; the line before it lists the kernels
-with their launch counts, errors, times and bounds.
+object, ``{"ok": true, "device": {...}}``; the line before it lists the nine
+kernels with their launch counts, errors, times and bounds.
 """
 
 from __future__ import annotations
@@ -71,7 +84,7 @@ from zktpu_torch.curve import point_kernels as pk
 from zktpu_torch.field import kernels as fk
 from zktpu_torch.field import torch_backend as fb
 from zktpu_torch.field.host import vec_to_bytes
-from zktpu_torch.field.spec import BLS12_381_FQ, BLS12_381_FR, BN254_FQ
+from zktpu_torch.field.spec import BLS12_381_FQ, BLS12_381_FR, BN254_FQ, BN254_FR
 from zktpu_torch.gkr import fused_lazy
 from zktpu_torch.gkr import lazy as gkr_lazy
 from zktpu_torch.gkr import protocol as gkr
@@ -80,8 +93,11 @@ from zktpu_torch.hash import keccak as hk
 from zktpu_torch.hash import keccak_device as kd
 from zktpu_torch.msm import fixed_base, generator_comb_mul, msm_bitsplit
 from zktpu_torch.msm import pippenger as pp
+from zktpu_torch.ntt import ntt as tn
+from zktpu_torch.ntt import ntt_kernels as nk
 from zktpu_torch.pcs.kzg import KZG
 from zktpu_torch.poly.multilinear import MultilinearPoly
+from zktpu_torch.poly.univariate import UnivariatePoly
 from zktpu_torch.sumcheck import fused, protocol
 from zktpu_torch.transcript import Transcript
 
@@ -118,6 +134,15 @@ POINT_TIME_WIDTHS = (1 << 16, 1 << 20)
 TIME_SIZES = (1 << 20, 1 << 24)
 TIMED_RUNS = 10
 
+#: the NTT path: BN254 Fr tables of 2^20 and 2^22 entries (bench.py:328-330);
+#: fft_evaluate / fft_interpolate at the first size
+NTT_LOG_SIZES = (20, 22)
+#: ntt_phase1 against its plain version at these sizes (log2), and ntt_stage at
+#: these (log2 size, stages)
+NTT_PHASE1_CHECK_LOGS = (0, 1, 3, 10, 12, 20, 22)
+NTT_STAGE_CHECKS = tuple((log_n, tuple(range(1, log_n + 1))) for log_n in (12, 20, 22))
+NTT_CPU_TIE_LOG = 12
+
 # Peaks of one H100 SXM used for the bounds. Memory: 3.35 TB/s (data sheet).
 # Integer: 132 SMs x 64 INT32 lanes x 1.98 GHz boost = 16.7e12 32-bit
 # multiply-adds a second; a 32x32->64 multiply-accumulate is two of them (low
@@ -127,7 +152,10 @@ INT32_MAD_PER_S = 132 * 64 * 1.98e9
 
 KERNEL_SOURCE = "zktpu_torch/csrc/sumcheck_kernels.cu"
 POINT_KERNEL_SOURCE = "zktpu_torch/csrc/point_kernels.cu"
+NTT_KERNEL_SOURCE = "zktpu_torch/csrc/ntt_kernels.cu"
 REPLACES = {
+    "ntt_phase1": "zktpu/ntt/pallas_ntt.py:107",
+    "ntt_stage": "zktpu/ntt/pallas_ntt.py:154",
     "point_add": "zktpu/curve/pallas_point.py:78",
     "point_double": "zktpu/curve/pallas_point.py:117",
     "mont_mul": "zktpu/field/pallas_kernels.py:110",
@@ -927,10 +955,11 @@ def phase_point_kernel_times() -> dict[int, dict[str, dict]]:
 def reset_all_launches() -> None:
     fk.reset_launches()
     pk.reset_launches()
+    nk.reset_launches()
 
 
 def all_launches() -> dict[str, int]:
-    return {**fk.launches, **pk.launches}
+    return {**fk.launches, **pk.launches, **nk.launches}
 
 
 def kzg_expected_doublings(n: int) -> int:
@@ -1154,6 +1183,247 @@ def phase_kzg_times(ctx, circuit, inputs, proof, taus) -> None:
 
 
 # ----------------------------------------------------------------------
+# phases 11 to 13: the NTT
+# ----------------------------------------------------------------------
+
+def phase_ntt_kernels_vs_plain() -> dict[str, int]:
+    ctx = fb.get_ctx(BN254_FR)
+    cpu = fb.get_ctx(BN254_FR, device="cpu")
+    rng = np.random.default_rng(9)
+    p = ctx.spec.modulus
+    edges = (0, 1, p - 1, ctx.spec.R % p)
+    worst = {name: 0 for name in nk.KERNEL_NAMES}
+
+    def note(name, err, what):
+        check(err == 0, f"{name} differs from its plain version ({what})")
+        worst[name] = max(worst[name], err)
+
+    for inverse in (False, True):
+        # uncached builds: the main path below must build its own tables
+        tws = {log_n: nk.build_twiddles(ctx, log_n, inverse)
+               for log_n in set(NTT_PHASE1_CHECK_LOGS) | {log_n for log_n, _ in NTT_STAGE_CHECKS}}
+        check(torch.equal(tws[NTT_CPU_TIE_LOG].cpu(), nk.build_twiddles(cpu, NTT_CPU_TIE_LOG, inverse)),
+              "the card's twiddle table differs from the CPU's")
+        errs = []
+        for log_n in NTT_PHASE1_CHECK_LOGS:
+            x = random_table(ctx, rng, 1 << log_n, edges=edges)
+            tiles = {min(nk.LOG_TILE, log_n)} | ({4} if log_n == NTT_CPU_TIE_LOG else set())
+            for log_tile in sorted(tiles):
+                err = max_abs_err(nk.ntt_phase1(ctx, x, tws[log_n], log_tile),
+                                  nk.ntt_phase1_plain(ctx, x, tws[log_n], log_tile))
+                note("ntt_phase1", err, f"2^{log_n}, tile 2^{log_tile}, inverse={inverse}")
+                errs.append(f"2^{log_n}/{log_tile}={err}")
+        for log_n, stages in NTT_STAGE_CHECKS:
+            x = random_table(ctx, rng, 1 << log_n, edges=edges)
+            group = 0
+            for stage in stages:
+                err = max_abs_err(nk.ntt_stage(ctx, x, tws[log_n], stage),
+                                  nk.ntt_stage_plain(ctx, x, tws[log_n], stage))
+                note("ntt_stage", err, f"2^{log_n}, stage {stage}, inverse={inverse}")
+                group = max(group, err)
+            errs.append(f"ntt_stage 1..{stages[-1]} of 2^{log_n}={group}")
+        torch.cuda.synchronize()
+        say(f"  bn254_fr {'inverse' if inverse else 'forward'}: ntt_phase1 (2^log_n/log tile=err) "
+            f"{' '.join(errs)}")
+    say("  the card's twiddle tables == the CPU's at 2^12, forward and inverse")
+    return worst
+
+
+def ntt_benchmark(ctx, log_n: int):
+    """The NTT path's table: 2^log_n elements of 8 words drawn uniformly below
+    2^256 from numpy seed 0, which ``to_mont`` reduces mod r into Montgomery form
+    (one ``mont_mul`` launch). Returns (the device table, the host coefficients)."""
+    rng = np.random.default_rng(0)
+    words = rng.integers(0, 1 << 32, size=(1 << log_n, ctx.num_words), dtype=np.uint32)
+    p = ctx.spec.modulus
+    coeffs = [int(v) % p for v in ctx.unpack(words)]
+    return fk.to_mont(ctx, ctx.to_device(words)), coeffs
+
+
+def ntt_expected(log_n: int, inverse: bool, first: bool) -> dict[str, int]:
+    """Launches of one ``ntt`` call: a phase-1 pass, a pass a later stage; the
+    first call of a (size, direction) builds its twiddles (log_n - 1 products),
+    the inverse scales by 1/n (one)."""
+    return {"ntt_phase1": 1, "ntt_stage": max(0, log_n - nk.LOG_TILE),
+            "mont_mul": (log_n - 1 if first else 0) + int(inverse)}
+
+
+def launched(fn):
+    """(fn(), the launches of the NTT path's three kernels that it made)."""
+    names = nk.KERNEL_NAMES + ("mont_mul",)
+    before = all_launches()
+    out = fn()
+    after = all_launches()
+    return out, {name: after[name] - before[name] for name in names}
+
+
+def phase_ntt_main_path(ctx):
+    spec = ctx.spec
+    set_up = {}
+    for log_n in NTT_LOG_SIZES:
+        set_up[log_n] = timed(lambda: ntt_benchmark(ctx, log_n))
+    say("  set-up (draw, host ints, upload, to_mont): "
+        + ", ".join(f"2^{k} {t:.3f}s" for k, (_, t) in set_up.items()))
+
+    reset_all_launches()
+    results = {}
+    for log_n in NTT_LOG_SIZES:
+        x = set_up[log_n][0][0]
+        for first in (True, False):
+            (fwd, got_f), t_f = timed(lambda: launched(lambda: tn.ntt(ctx, x)))
+            (back, got_b), t_b = timed(lambda: launched(lambda: tn.ntt(ctx, fwd, inverse=True)))
+            for got, inverse in ((got_f, False), (got_b, True)):
+                want = ntt_expected(log_n, inverse, first)
+                check(got == want, f"launches of {'first' if first else 'warm'} ntt 2^{log_n} "
+                      f"inverse={inverse}: {got} != {want}")
+            say(f"  2^{log_n} {'first' if first else 'warm '}: ntt {t_f:.4f}s, inverse {t_b:.4f}s "
+                f"(host clock, synchronised); launches {got_f} / {got_b}")
+        results[log_n] = (x, set_up[log_n][0][1], fwd, back)
+
+    log_n = NTT_LOG_SIZES[0]
+    poly = UnivariatePoly(spec, results[log_n][1])
+    (evals, got_e), t_e = timed(lambda: launched(lambda: tn.fft_evaluate(poly)))
+    (interp, got_i), t_i = timed(lambda: launched(lambda: tn.fft_interpolate(spec, evals)))
+    stages = log_n - nk.LOG_TILE
+    check(got_e == {"ntt_phase1": 1, "ntt_stage": stages, "mont_mul": 2},
+          f"launches of fft_evaluate: {got_e}")
+    check(got_i == {"ntt_phase1": 1, "ntt_stage": stages, "mont_mul": 3},
+          f"launches of fft_interpolate: {got_i}")
+    launches = all_launches()
+    say(f"  2^{log_n} fft_evaluate {t_e:.3f}s, fft_interpolate {t_i:.3f}s (host ints in and out)")
+    say(f"  launches on the NTT path: {launches}")
+    check(all(v == 0 for k, v in launches.items() if k not in nk.KERNEL_NAMES + ("mont_mul",)),
+          "the NTT path launched another path's kernel")
+    return results, poly, evals, interp, launches
+
+
+def phase_ntt_ties(ctx, results, poly, evals, interp) -> None:
+    spec = ctx.spec
+    p = spec.modulus
+    for log_n, (x, coeffs, fwd, back) in results.items():
+        n = 1 << log_n
+        check(torch.equal(back, x), f"ntt(ntt(x), inverse) != x at 2^{log_n}")
+        rows = [0, 1, n // 2, int(np.random.default_rng(0).integers(2, n))]
+        omega = spec.root_of_unity(n)
+        got = [int(v) for v in ctx.unpack(fk.from_mont(ctx, fwd[rows].contiguous()))]
+        t0 = time.time()
+        host = UnivariatePoly(spec, coeffs)
+        want = [host.evaluate(pow(omega, i, p)) for i in rows]
+        check(got == want, f"ntt outputs {rows} at 2^{log_n} are not the host's Horner evaluations")
+        if log_n == NTT_LOG_SIZES[0]:
+            check([evals[i] for i in rows] == want, "fft_evaluate differs from ntt")
+        say(f"  2^{log_n}: inverse(ntt(x)) == x; outputs {rows} == Horner at w^i "
+            f"({time.time() - t0:.1f}s on the host)")
+    check(interp.coefficients == poly.coefficients,
+          "fft_interpolate(fft_evaluate(poly)) is not poly")
+    say(f"  fft_interpolate(fft_evaluate(poly)) == poly at 2^{NTT_LOG_SIZES[0]}")
+
+    cpu = fb.get_ctx(spec, device="cpu")
+    x = random_table(ctx, np.random.default_rng(10), 1 << NTT_CPU_TIE_LOG)
+    for inverse in (False, True):
+        check(torch.equal(tn.ntt(ctx, x, inverse).cpu(), tn.ntt(cpu, x.cpu(), inverse)),
+              f"2^{NTT_CPU_TIE_LOG} ntt on the card differs from the CPU's (inverse={inverse})")
+    say(f"  2^{NTT_CPU_TIE_LOG} ntt and inverse on the card == on the CPU")
+
+
+def ntt_kernel_work(name: str, log_n: int, stage: int = 0):
+    """(bytes moved, 32-bit multiply-adds) of one call on a 2^log_n table: the
+    table read once and written once, the distinct twiddles read once (T/2 for
+    phase 1 at tile T, m/2 for the stage of span m), one Montgomery product a
+    butterfly whose twiddle is not w^0 = 1 (the stage of span m has n/m
+    butterflies by 1, which need none); modular adds and subtractions not
+    counted."""
+    n, elem, mul = 1 << log_n, 32, 2 * (2 * 8 * 8 + 8)
+    if name == "ntt_phase1":
+        log_tile = min(nk.LOG_TILE, log_n)
+        products = sum(n // 2 - (n >> s) for s in range(1, log_tile + 1))
+        return 2 * n * elem + (1 << log_tile) // 2 * elem, products * mul
+    if name == "ntt_stage":
+        return 2 * n * elem + (1 << (stage - 1)) * elem, (n // 2 - (n >> stage)) * mul
+    raise ValueError(name)
+
+
+def ntt_record(cold, warm, plain_ms, nbytes, mads) -> dict:
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, mads / INT32_MAD_PER_S * 1e3
+    return {"ms": cold, "warm_ms": warm, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes_ms": t_bytes, "ops_ms": t_ops}
+
+
+def phase_ntt_times(ctx, results) -> dict[int, dict[str, dict]]:
+    """Each kernel alone at both sizes (ntt_stage: every stage of a transform,
+    and their mean as the kernel's record), the twiddle build, warm transforms,
+    fft_evaluate / fft_interpolate with the host packing apart."""
+    flush = torch.empty(256 << 20, dtype=torch.int8, device=ctx.device)
+    out = {}
+    for log_n in NTT_LOG_SIZES:
+        x = results[log_n][0]
+        tw = nk.stage_twiddles(ctx, log_n, False)
+        log_tile = min(nk.LOG_TILE, log_n)
+        recs = {}
+        rec = ntt_record(
+            time_events(lambda: nk.ntt_phase1(ctx, x, tw, log_tile), TIMED_RUNS, flush),
+            time_events(lambda: nk.ntt_phase1(ctx, x, tw, log_tile), TIMED_RUNS),
+            time_events(lambda: nk.ntt_phase1_plain(ctx, x, tw, log_tile), 3, flush),
+            *ntt_kernel_work("ntt_phase1", log_n))
+        recs["ntt_phase1"] = rec
+        say(f"  ntt_phase1 2^{log_n}: {rec['ms']:.4f} ms cold L2, {rec['warm_ms']:.4f} ms warm, "
+            f"plain {rec['plain_ms']:.2f} ms, bound {rec['bound_ms']:.4f} ms by {rec['bound_by']} "
+            f"(bytes {rec['bytes_ms']:.4f} ms, operations {rec['ops_ms']:.4f} ms)")
+        stage_recs = []
+        for stage in range(log_tile + 1, log_n + 1):
+            rec = ntt_record(
+                time_events(lambda: nk.ntt_stage(ctx, x, tw, stage), TIMED_RUNS, flush),
+                time_events(lambda: nk.ntt_stage(ctx, x, tw, stage), TIMED_RUNS),
+                time_events(lambda: nk.ntt_stage_plain(ctx, x, tw, stage), 3, flush),
+                *ntt_kernel_work("ntt_stage", log_n, stage))
+            stage_recs.append(rec)
+            say(f"  ntt_stage 2^{log_n} stage {stage}: {rec['ms']:.4f} ms cold L2, "
+                f"{rec['warm_ms']:.4f} ms warm, plain {rec['plain_ms']:.2f} ms, "
+                f"bound {rec['bound_ms']:.4f} ms by {rec['bound_by']}")
+        mean = {k: statistics.fmean(r[k] for r in stage_recs)
+                for k in ("ms", "warm_ms", "plain_ms", "bound_ms", "bytes_ms", "ops_ms")}
+        mean["bound_by"] = "bytes" if mean["bytes_ms"] >= mean["ops_ms"] else "operations"
+        recs["ntt_stage"] = mean
+        say(f"  ntt_stage 2^{log_n}, mean of {len(stage_recs)} stages: {mean['ms']:.4f} ms cold, "
+            f"bound {mean['bound_ms']:.4f} ms, plain {mean['plain_ms']:.2f} ms; all "
+            f"{len(stage_recs)} together {sum(r['ms'] for r in stage_recs):.4f} ms")
+
+        builds = {inverse: time_events(lambda: nk.build_twiddles(ctx, log_n, inverse), TIMED_RUNS)
+                  for inverse in (False, True)}
+        t_fwd = time_events(lambda: tn.ntt(ctx, x), TIMED_RUNS, flush)
+        t_inv = time_events(lambda: tn.ntt(ctx, x, inverse=True), TIMED_RUNS, flush)
+        bound = recs["ntt_phase1"]["bound_ms"] + sum(r["bound_ms"] for r in stage_recs)
+        say(f"  ntt 2^{log_n} warm: forward {t_fwd:.4f} ms, inverse {t_inv:.4f} ms (cold L2; "
+            f"bound of the kernels {bound:.4f} ms); twiddle build alone (log_n - 1 = "
+            f"{log_n - 1} mont_mul launches and their uploads) {builds[False]:.4f} ms forward, "
+            f"{builds[True]:.4f} ms inverse")
+        out[log_n] = recs
+        torch.cuda.empty_cache()
+
+    log_n = NTT_LOG_SIZES[0]
+    poly = UnivariatePoly(ctx.spec, results[log_n][1])
+    evals, t_e = timed(lambda: tn.fft_evaluate(poly))
+    _, t_i = timed(lambda: tn.fft_interpolate(ctx.spec, evals))
+    words, t_pack = timed(lambda: ctx.pack(poly.coefficients))
+    table, t_up = timed(lambda: ctx.to_device(words))
+    _, t_down = timed(lambda: [int(v) for v in ctx.unpack(table)])
+    say(f"  2^{log_n} fft_evaluate {t_e:.3f}s, fft_interpolate {t_i:.3f}s (host clock); of each, "
+        f"host packing of the ints {t_pack:.3f}s, upload {t_up:.4f}s, download and unpacking "
+        f"{t_down:.3f}s")
+    return out
+
+
+def print_ranking(kernels: list[dict]) -> None:
+    """The nine kernels by launches on the main paths x (ms - bound_ms), at the
+    size of each row of the kernels line."""
+    ranked = sorted(kernels, key=lambda k: -k["launches"] * (k["ms"] - k["bound_ms"]))
+    say("  kernels by launches x (ms - bound_ms): " + "; ".join(
+        f"{k['name']} {k['launches']} x ({k['ms']:.4f} - {k['bound_ms']:.4f}) = "
+        f"{k['launches'] * (k['ms'] - k['bound_ms']):.1f} ms" for k in ranked))
+
+
+# ----------------------------------------------------------------------
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1164,17 +1434,20 @@ def main() -> int:
     say(f"[1] device: {gpu}")
     say(f"    torch {torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.time()
-    _build.build_cuda_libraries(["sumcheck_kernels", "point_kernels"])
+    _build.build_cuda_libraries(["sumcheck_kernels", "point_kernels", "ntt_kernels"])
     fk.library()
     pk.library()
-    say(f"    kernels built from {KERNEL_SOURCE} ({_build.build_seconds['sumcheck_kernels']:.1f}s) "
-        f"and {POINT_KERNEL_SOURCE} ({_build.build_seconds['point_kernels']:.1f}s), side by side "
+    nk.library()
+    say(f"    kernels built from {KERNEL_SOURCE} ({_build.build_seconds['sumcheck_kernels']:.1f}s), "
+        f"{POINT_KERNEL_SOURCE} ({_build.build_seconds['point_kernels']:.1f}s) and "
+        f"{NTT_KERNEL_SOURCE} ({_build.build_seconds['ntt_kernels']:.1f}s), side by side "
         f"in {time.time() - t0:.1f}s (0.0 = already built)")
-    for line in resource_usage(_build.build_log["sumcheck_kernels"], "gkr_round_kernel"):
-        say(f"    {line}")
-    for needle in ("point_add_kernel", "point_double_kernel"):
-        for line in resource_usage(_build.build_log["point_kernels"], needle):
-            say(f"    {line}")
+    for stem, needles in (("sumcheck_kernels", ("gkr_round_kernel",)),
+                          ("point_kernels", ("point_add_kernel", "point_double_kernel")),
+                          ("ntt_kernels", ("ntt_phase1_kernel", "ntt_stage_kernel"))):
+        for needle in needles:
+            for line in resource_usage(_build.build_log[stem], needle):
+                say(f"    {line}")
     say(f"    host Keccak backend: {hk.backend()}")
     check(hk.backend() == "c", "the host Keccak fell back to pure Python")
 
@@ -1218,20 +1491,37 @@ def main() -> int:
     del full_proof
     torch.cuda.empty_cache()
     point_times = phase_point_kernel_times()
+
+    torch.cuda.empty_cache()
+    say("[11] the two NTT kernels against their plain PyTorch versions (exact)")
+    errs.update(phase_ntt_kernels_vs_plain())
+    rctx = fb.get_ctx(BN254_FR)
+    say(f"[12] NTT path: BN254 Fr, ntt forward and inverse at 2^{NTT_LOG_SIZES[0]} and "
+        f"2^{NTT_LOG_SIZES[1]}, fft_evaluate -> fft_interpolate at 2^{NTT_LOG_SIZES[0]}")
+    ntt_results, ntt_poly, ntt_evals, ntt_interp, ntt_launches = phase_ntt_main_path(rctx)
+    phase_ntt_ties(rctx, ntt_results, ntt_poly, ntt_evals, ntt_interp)
+    say("[13] times of the NTT path")
+    ntt_times = phase_ntt_times(rctx, ntt_results)
+    del ntt_results, ntt_poly, ntt_evals, ntt_interp
+    torch.cuda.empty_cache()
     phase_gkr_launches_a_round(gctx)
 
     kernels = []
-    for name in fk.KERNEL_NAMES + pk.KERNEL_NAMES:
+    for name in fk.KERNEL_NAMES + pk.KERNEL_NAMES + nk.KERNEL_NAMES:
         if name in pk.KERNEL_NAMES:
             rec, source = point_times[1 << GKR_NUM_VARS][name], POINT_KERNEL_SOURCE
+        elif name in nk.KERNEL_NAMES:
+            rec, source = ntt_times[NTT_LOG_SIZES[0]][name], NTT_KERNEL_SOURCE
         else:
             rec, source = times[1 << NUM_VARS][name], KERNEL_SOURCE
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": REPLACES[name],
-            "launches": launches.get(name, 0) + gkr_launches.get(name, 0) + kzg_launches[name],
+            "launches": (launches.get(name, 0) + gkr_launches.get(name, 0) + kzg_launches[name]
+                         + ntt_launches[name]),
             "max_abs_err": errs[name], "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"], "library_ms": None,
         })
+    print_ranking(kernels)
     say(f"total {time.time() - t_start:.1f}s")
     say(gpu)
     say(json.dumps({"kernels": kernels}))

@@ -13,8 +13,8 @@ semantics are replicated exactly because the *coefficient vector* is what the
 Fiat-Shamir transcript absorbs (the reference's sum_check/src/
 sum_check_protocol.rs:99).
 
-Batched device evaluation of many points is the NTT's job (a later part of this
-package) and ``zktpu_torch.poly.multilinear``'s (MLE folds).
+Batched device evaluation of many points lives in ``zktpu_torch.ntt`` (NTT) and
+``zktpu_torch.poly.multilinear`` (MLE folds).
 """
 
 from __future__ import annotations
