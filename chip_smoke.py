@@ -13,8 +13,9 @@ started together), then
      word (tolerance 0: this is integer arithmetic), for BN254 Fq and BLS12-381
      Fr at sizes from 2 to 2^20 and BLS12-381 Fq (12 words) up to 4096, with
      edge values and unreduced operands; the two G1 point kernels at widths 1,
-     2, 33, 4096 and 2^20 with infinite, equal, opposite and re-scaled operands
-     and coordinates 0 and p - 1 mixed in;
+     2, 33, 127, 128, 129, 4096 and 2^20 with infinite, equal, opposite and
+     re-scaled operands and coordinates 0, 1 and p - 1 mixed in, point_double
+     repeated 1, 2 and 16 times (2^20: once);
   3. drives the first main path at full size through the public entry points:
      the sumcheck prove + verify of a 2^20-entry BN254 Fq multilinear polynomial
      (``MultilinearPoly.from_ints`` -> ``sumcheck.fused.prove`` ->
@@ -36,15 +37,20 @@ started together), then
      2^20-input circuit with its multilinear-KZG input proof
      (``gkr.protocol.prove`` -> ``gkr.protocol.verify``: the SRS comb, the
      Pippenger MSMs of the commitment and of the 2 x 20 quotients, the host's
-     pairings), reads the launch counts of all seven kernels, and refuses a
+     pairings), reads the launch counts of all seven kernels (a Horner window
+     is one point_double launch of c doublings: 939 in all), and refuses a
      tampered quotient point, commitment and opened evaluation;
   9. ties the input proof without a reference run: the taus are known, so the
      commitment, every quotient commitment and some SRS entries must be the
      host's scalar multiples of G1; the comb equals the ladder and Pippenger the
      bit-split MSM at 2^10; a 2^6 proof on the card equals the CPU's; the 2^5
      proof hashes to a stored digest;
- 10. times the third path: ``prove`` warm with its stages, ``verify`` with the
-     host's pairings apart, synchronising calls, peak device memory;
+ 10. times the third path: ``prove`` warm with its stages and each quotient
+     step, ``verify`` with the host's pairings apart, synchronising calls, peak
+     device memory; then the point kernels at 2^16 and 2^20 beside their
+     times before the redesign, at widths 1 and 2 (the Horner chain's shapes,
+     point_double 1, 4, 8 and 16 times) and on a 2^20 batch that is 75 %
+     infinities;
  11. holds the two NTT kernels against their plain versions on BN254 Fr tables
      with 0, 1, r - 1 and R mod r entries, forward and inverse twiddles:
      ``ntt_phase1`` at 1 to 2^22 entries, ``ntt_stage`` at every stage of 2^12,
@@ -59,6 +65,10 @@ started together), then
      bounds, the twiddle build, warm transforms, and ``fft_evaluate`` /
      ``fft_interpolate`` with their host packing apart.
 
+Last, each of the four paths runs once more under ``torch.profiler``, and the
+nine kernels are ranked by their device time on the paths less the bound of the
+lanes they covered there.
+
 Any failed comparison exits non-zero. The last line of the output is one JSON
 object, ``{"ok": true, "device": {...}}``; the line before it lists the nine
 kernels with their launch counts, errors, times and bounds.
@@ -68,6 +78,7 @@ from __future__ import annotations
 
 import copy
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -129,8 +140,21 @@ MSM_TIE_LANES = 1 << 10
 MSM_TIE_WINDOWS = (4, 8, 16)
 
 CHECK_SIZES = (2, 4, 64, 4096, 1 << 20)
-POINT_CHECK_WIDTHS = (1, 2, 33, 4096, 1 << 20)
+POINT_CHECK_WIDTHS = (1, 2, 33, 127, 128, 129, 4096, 1 << 20)
+#: point_double's repeat counts held against the plain version up to 4096 lanes
+#: (a plain doubling of 2^20 lanes takes some 0.4 s: there only once)
+POINT_DOUBLE_TIMES = (1, 2, 16)
 POINT_TIME_WIDTHS = (1 << 16, 1 << 20)
+#: the Horner chain's widths, and the repeat counts timed there
+HORNER_WIDTHS = (1, 2)
+HORNER_TIMES = (1, 4, 8, 16)
+#: the point kernels' times before the redesign (ms, CUDA events, L2 flushed;
+#: chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700 W, PERF.md section 6)
+POINT_MS_BEFORE = {("point_add", 1 << 16): 0.1848, ("point_add", 1 << 20): 1.4642,
+                   ("point_double", 1 << 16): 0.0478, ("point_double", 1 << 20): 0.5428}
+#: point_add launches of the 2^20-input gkr.prove (the compaction's round
+#: count follows the data, which is fixed by the seeds)
+KZG_POINT_ADDS_2E20 = 1407
 TIME_SIZES = (1 << 20, 1 << 24)
 TIMED_RUNS = 10
 
@@ -833,15 +857,16 @@ def rescale_points(fq, pt, lam):
 def point_edge_lanes(fq, rng, p1, p2):
     """Overwrite the first lanes of two batches with the edge cases, as far as
     the width goes: P == Q in the same and in another Jacobian form, P == -Q,
-    each operand infinite, both infinite, coordinates 0 and p - 1."""
+    each operand infinite, both infinite, coordinates 0, 1 and p - 1."""
     n = p1[0].shape[0]
     p = fq.spec.modulus
     p1 = tuple(t.clone() for t in p1)
     p2 = tuple(t.clone() for t in p2)
     other_form = rescale_points(fq, p1, random_table(fq, rng, n))
     neg_y = fb.sub(fq, torch.zeros_like(p1[1]), p1[1])
-    # two rows of raw coordinates: (0, p - 1, p - 1) and (0, 1, p - 1)
-    raw = tuple(random_table(fq, rng, 2, edges=pair) for pair in ((0, 0), (p - 1, 1), (p - 1, p - 1)))
+    # three rows of raw coordinates: (0, p - 1, p - 1), (0, 1, p - 1), (1, 1, 1)
+    raw = tuple(random_table(fq, rng, 3, edges=col)
+                for col in ((0, 0, 1), (p - 1, 1, 1), (p - 1, p - 1, 1)))
 
     zero = torch.zeros_like(p1[2][0])
     row = lambda pt, i: tuple(t[i].clone() for t in pt)  # noqa: E731
@@ -854,6 +879,7 @@ def point_edge_lanes(fq, rng, p1, p2):
         lambda: ((p1[0][5], p1[1][5], zero), (p2[0][5], p2[1][5], zero)),    # both infinite
         lambda: (row(raw, 0), None),                                         # coordinates 0, p - 1
         lambda: (row(raw, 1), row(raw, 0)),
+        lambda: (row(raw, 2), row(raw, 1)),                                  # and 1
     ]
     for lane, build in enumerate(cases[:n]):
         left, right = build()
@@ -876,9 +902,12 @@ def phase_point_kernels_vs_plain() -> dict[str, int]:
     for n in POINT_CHECK_WIDTHS:
         p1, p2 = point_edge_lanes(fq, rng, random_points(rng, n, fq.device),
                                   random_points(rng, n, fq.device))
+        counts = POINT_DOUBLE_TIMES if n <= 4096 else (1,)
         errs = {
             "point_add": triple_err(pk.point_add(fq, p1, p2), pk.point_add_plain(fq, p1, p2)),
-            "point_double": triple_err(pk.point_double(fq, p1), pk.point_double_plain(fq, p1)),
+            "point_double": max(triple_err(pk.point_double(fq, p1, times),
+                                           pk.point_double_plain(fq, p1, times))
+                                for times in counts),
         }
         torch.cuda.synchronize()
         if n >= 8:
@@ -889,7 +918,8 @@ def phase_point_kernels_vs_plain() -> dict[str, int]:
             check(got == [hc.add(x, y) for x, y in zip(a, b)], "edge lanes are not the group law")
             check(got[1] is None and got[5] is None and got[0] == hc.double(a[0]),
                   "edge lanes did not meet their cases")
-        say(f"  bls12_381_fq width {n}: " + " ".join(f"{k}={v}" for k, v in errs.items()))
+        say(f"  bls12_381_fq width {n}: " + " ".join(f"{k}={v}" for k, v in errs.items())
+            + f" (point_double times {counts})")
         for name, err in errs.items():
             check(err == 0, f"{name} differs from its plain version (width {n})")
             worst[name] = max(worst[name], err)
@@ -899,13 +929,17 @@ def phase_point_kernels_vs_plain() -> dict[str, int]:
 def point_kernel_work(name: str, n: int):
     """(bytes moved, 32-bit multiply-adds) of one call over n lanes of finite,
     unequal points: an addition reads six and writes three 48-byte coordinates
-    for 16 Montgomery products, a doubling three and three for 7. The modular
-    additions and subtractions (no products) are not counted."""
-    mul = 2 * (2 * 12 * 12 + 12)
+    for 11 Montgomery products and 5 squarings (add-2007-bl), a doubling three
+    and three for 2 products and 5 squarings (dbl-2009-l). A squaring forms
+    each cross product once: W(W + 1) operations for the square, W(2W + 1) for
+    the reduction. The modular additions and subtractions are not counted."""
+    w = 12
+    mul = 2 * (2 * w * w + w)
+    sqr = w * (w + 1) + w * (2 * w + 1)
     if name == "point_add":
-        return 9 * 48 * n, 16 * mul * n
+        return 9 * 48 * n, (11 * mul + 5 * sqr) * n
     if name == "point_double":
-        return 6 * 48 * n, 7 * mul * n
+        return 6 * 48 * n, (2 * mul + 5 * sqr) * n
     raise ValueError(name)
 
 
@@ -933,9 +967,32 @@ def phase_point_kernel_times() -> dict[int, dict[str, dict]]:
                    "bound_ms": max(t_bytes, t_ops),
                    "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
             out[n][name] = rec
-            say(f"  {name} 2^{n.bit_length() - 1} lanes: {cold:.4f} ms cold L2, {warm:.4f} ms warm, "
-                f"plain {plain_ms:.2f} ms, bound {rec['bound_ms']:.4f} ms by {rec['bound_by']} "
-                f"(bytes {t_bytes:.4f} ms, operations {t_ops:.4f} ms)")
+            say(f"  {name} 2^{n.bit_length() - 1} lanes: {cold:.4f} ms cold L2 (before the redesign: "
+                f"{POINT_MS_BEFORE[name, n]:.4f}), {warm:.4f} ms warm, plain {plain_ms:.2f} ms, "
+                f"bound {rec['bound_ms']:.4f} ms by {rec['bound_by']} (bytes {t_bytes:.4f} ms, "
+                f"operations {t_ops:.4f} ms; {rec['bound_ms'] / cold:.1%} of it)")
+    # the Horner chain's shapes: one thread's latency and a launch
+    for n in HORNER_WIDTHS:
+        p1, p2 = random_points(rng, n, fq.device), random_points(rng, n, fq.device)
+        add_ms = time_events(lambda: pk.point_add(fq, p1, p2), TIMED_RUNS)
+        dbl_ms = [time_events(lambda: pk.point_double(fq, p1, times), TIMED_RUNS)
+                  for times in HORNER_TIMES]
+        say(f"  width {n}: point_add {add_ms:.4f} ms; point_double times "
+            + ", ".join(f"{t}: {ms:.4f} ms" for t, ms in zip(HORNER_TIMES, dbl_ms))
+            + " (CUDA events, L2 warm)")
+    # the compaction's shape at 2^20: the first 3/4 of the lanes (digit-0
+    # windows, sorted first) infinite on both sides
+    n = POINT_TIME_WIDTHS[-1]
+    p1, p2 = random_points(rng, n, fq.device), random_points(rng, n, fq.device)
+    for pt in (p1, p2):
+        pt[2][: 3 * n // 4] = 0
+    cold = time_events(lambda: pk.point_add(fq, p1, p2), TIMED_RUNS, flush)
+    nbytes = point_kernel_work("point_add", n)[0]
+    mads = point_kernel_work("point_add", n // 4)[1]  # products only on the finite quarter
+    say(f"  point_add 2^20 lanes, 75 % infinite in one run: {cold:.4f} ms cold L2; bound "
+        f"{max(nbytes / HBM_BYTES_PER_S, mads / INT32_MAD_PER_S) * 1e3:.4f} ms (bytes of every "
+        f"lane {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms, operations of the finite quarter "
+        f"{mads / INT32_MAD_PER_S * 1e3:.4f} ms)")
     # mont_mul at W = 12, the word count of this path's field
     for n in POINT_TIME_WIDTHS:
         table = random_table(fq, rng, n)
@@ -964,13 +1021,14 @@ def all_launches() -> dict[str, int]:
 
 def kzg_expected_doublings(n: int) -> int:
     """point_double launches of ``prove`` at 2^n inputs: every Pippenger call
-    makes 256 - c in its Horner chain (c the window it picked) and none
-    elsewhere; the commitment is one call over 2^n points, and step k of the two
-    openings one batched call of two segments over 2^(n-1-k). The comb's table
-    is built before the path is driven."""
-    doublings = 256 - pp.pick_window_bits(1 << n)
+    makes one a window below the top one, 256/c - 1 (c the window it picked:
+    each launch doubles c times), and none elsewhere; the commitment is one
+    call over 2^n points, and step k of the two openings one batched call of two
+    segments over 2^(n-1-k). The comb's table is built before the path is
+    driven."""
+    doublings = 256 // pp.pick_window_bits(1 << n) - 1
     for k in range(n):
-        doublings += 256 - pp.pick_window_bits_multi(2, 1 << (n - 1 - k))
+        doublings += 256 // pp.pick_window_bits_multi(2, 1 << (n - 1 - k)) - 1
     return doublings
 
 
@@ -1018,6 +1076,8 @@ def phase_kzg_main_path(ctx, circuit, inputs, layers_launches):
     # and the Horner chain's additions; the compaction's round count follows the data
     check(prove_launches["point_add"] >= 31 + n + (1 + n) * (2 + 256 // 16 - 1),
           f"too few point_add launches: {prove_launches['point_add']}")
+    check(prove_launches["point_add"] == KZG_POINT_ADDS_2E20,
+          f"point_add launches {prove_launches['point_add']} != {KZG_POINT_ADDS_2E20}")
     walk = gkr_expected_launches(n)
     check(all(launches[name] >= walk[name] for name in walk),
           "the full proof launched the layer walk's kernels less often than the walk alone")
@@ -1103,11 +1163,12 @@ def phase_kzg_ties(ctx, inputs, proof, taus, layers_proved) -> None:
     for c in MSM_TIE_WINDOWS:
         before = pk.launches["point_double"]
         got = pp.msm_pippenger(comb, weights, c)
-        check(pk.launches["point_double"] - before == 256 - c, f"Horner doublings at c={c}")
+        check(pk.launches["point_double"] - before == 256 // c - 1,
+              f"Horner doubling launches at c={c}")
         check(dc.unpack_points(tuple(t[None] for t in got)) == bitsplit,
               f"Pippenger (c={c}) != bit-split at {lanes} points")
     say(f"  Pippenger (c in {MSM_TIE_WINDOWS}) == bit-split MSM at {lanes} points; "
-        "256 - c doublings a call")
+        "256/c - 1 doubling launches (of c doublings each) a call")
 
     structure, digest_inputs = gkr_benchmark(KZG_DIGEST_INPUTS)
     small = gkr.prove(Circuit(ctx, structure), digest_inputs,
@@ -1158,11 +1219,17 @@ def phase_kzg_times(ctx, circuit, inputs, proof, taus) -> None:
     quotients, t_quot = timed(lambda: (kzg._quotients(o_b, layers.r_b, input_poly),
                                        kzg._quotients(o_c, layers.r_c, input_poly)))
     _, t_msms = timed(lambda: kzg._commit_quotients(*quotients))
+    bases = kzg.collapsed_bases()
+    t_steps = [timed(lambda: pp.msm_pippenger_multi(bases[k], torch.stack([q[k] for q in quotients])))[1]
+               for k in range(n)]
     total = t_walk + t_setup + t_open + t_commit + t_chain + t_quot + t_msms
     say(f"  stages of prove, each alone: layer walk {t_walk:.3f}s, KZG set-up (eq table, comb, "
         f"g2 taus on the host) {t_setup:.3f}s, opens {t_open:.3f}s, commit MSM {t_commit:.3f}s, "
         f"basis chain {t_chain:.3f}s, quotient tables {t_quot:.3f}s, quotient MSMs {t_msms:.3f}s; "
         f"sum {total:.3f}s")
+    say(f"  each quotient step's batched MSM alone (2 x 2^({n - 1}-k) points, c): " + ", ".join(
+        f"{k}: {t * 1e3:.1f} ms (c={pp.pick_window_bits_multi(2, 1 << (n - 1 - k))})"
+        for k, t in enumerate(t_steps)))
 
     t0 = time.time()
     walked = gkr.verify_layers(proof, circuit, tuple(proof.input_proof.opened_evals))
@@ -1414,13 +1481,122 @@ def phase_ntt_times(ctx, results) -> dict[int, dict[str, dict]]:
     return out
 
 
-def print_ranking(kernels: list[dict]) -> None:
-    """The nine kernels by launches on the main paths x (ms - bound_ms), at the
-    size of each row of the kernels line."""
+def all_lanes() -> dict[str, int]:
+    return {**fk.lanes, **pk.lanes, **nk.lanes}
+
+
+def lanes_bound_ms(name: str, lanes: int, doublings: int) -> float:
+    """The least time of ``lanes`` lanes of a kernel, as in its row's bound:
+    the five field kernels at W = 8 (the KZG path's few 12-word ``mont_mul``
+    lanes priced so too), ``point_add`` on finite lanes, ``point_double``'s
+    bytes by lanes and products by ``doublings`` (lanes x times), the NTT
+    kernels at the path's 2^10 tile with no twiddle reads."""
+    if lanes == 0:
+        return 0.0
+    if name == "point_double":
+        nbytes, mads = point_kernel_work(name, lanes)[0], point_kernel_work(name, doublings)[1]
+    elif name == "point_add":
+        nbytes, mads = point_kernel_work(name, lanes)
+    elif name == "ntt_phase1":
+        nbytes, mads = (v * lanes / (1 << 20) for v in ntt_kernel_work(name, 20))
+    elif name == "ntt_stage":
+        nbytes, mads = 2 * 32 * lanes, lanes // 2 * 2 * (2 * 8 * 8 + 8)
+    else:
+        nbytes, mads = kernel_work(name, lanes, 8)
+    return max(nbytes / HBM_BYTES_PER_S, mads / INT32_MAD_PER_S) * 1e3
+
+
+def profile_path(fn) -> dict:
+    """Run ``fn`` once under torch.profiler (device activity only): its
+    launches, lanes and point doublings by kernel, and the device milliseconds
+    of each kernel, summed by the device function's name (``finish_rows``, the
+    second pass of the three summing kernels, apart)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    reset_all_launches()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    t_run = time.time() - t0
+    names = fk.KERNEL_NAMES + pk.KERNEL_NAMES + nk.KERNEL_NAMES + ("finish_rows",)
+    device_ms = {name: 0.0 for name in names}
+    pattern = re.compile(r"\b(" + "|".join(names) + r")_kernel\b")
+    # the raw events, not key_averages(): a path launches up to some 600,000
+    # kernels, and building the averaged tree takes minutes
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type().name == "CUDA":
+            found = pattern.search(e.name())
+            if found:
+                device_ms[found.group(1)] += e.duration_ns() / 1e6
+    return {"launches": all_launches(), "lanes": all_lanes(), "doublings": pk.doublings,
+            "device_ms": device_ms, "seconds": t_run, "total_s": time.time() - t0}
+
+
+def print_ranking(kernels: list[dict], profiles: dict[str, dict]) -> list[dict]:
+    """The nine kernels ranked by device ms on the four paths (one profiled run
+    of each) less the bound of the lanes they covered there; then, for
+    comparison, the earlier ranking (launches x (ms - bound_ms) at each row's
+    size), which prices every launch at the row's width."""
+    rows = []
+    for k in kernels:
+        name = k["name"]
+        launches = sum(p["launches"][name] for p in profiles.values())
+        lanes = sum(p["lanes"][name] for p in profiles.values())
+        doublings = sum(p["doublings"] for p in profiles.values()) if name == "point_double" else 0
+        device = sum(p["device_ms"][name] for p in profiles.values())
+        bound = lanes_bound_ms(name, lanes, doublings)
+        rows.append({"name": name, "launches": launches, "lanes": lanes, "device_ms": device,
+                     "bound_ms": bound, "loss_ms": device - bound})
+    rows.sort(key=lambda r: -r["loss_ms"])
+    say("  kernels at real widths, by device ms on the paths - bound of their lanes "
+        "(point_add's bound counts every lane as finite):")
+    for r in rows:
+        say(f"    {r['name']}: {r['launches']} launches, {r['lanes']} lanes, {r['device_ms']:.3f} "
+            f"device ms, bound {r['bound_ms']:.3f} ms, loss {r['loss_ms']:.3f} ms")
+    finish = sum(p["device_ms"]["finish_rows"] for p in profiles.values())
+    say(f"    (finish_rows, the summing kernels' second pass: {finish:.3f} device ms)")
+    say("  by path: " + "; ".join(
+        f"{path} ({p['seconds']:.1f}s profiled, {p['total_s']:.1f}s with the summary): "
+        + ", ".join(f"{n} {v:.2f}" for n, v in p["device_ms"].items() if v)
+        for path, p in profiles.items()))
     ranked = sorted(kernels, key=lambda k: -k["launches"] * (k["ms"] - k["bound_ms"]))
-    say("  kernels by launches x (ms - bound_ms): " + "; ".join(
+    say("  earlier ranking, kernels by launches x (ms - bound_ms) at each row's size: " + "; ".join(
         f"{k['name']} {k['launches']} x ({k['ms']:.4f} - {k['bound_ms']:.4f}) = "
         f"{k['launches'] * (k['ms'] - k['bound_ms']):.1f} ms" for k in ranked))
+    return rows
+
+
+def phase_profiles(ctx, gctx, rctx, circuit, inputs, taus, ntt_inputs, ntt_poly) -> dict[str, dict]:
+    """Each main path once more under the profiler, as phases 3, 5, 8 and 12
+    drove it (the NTT's twiddle tables are cached by then)."""
+    values = benchmark_values(NUM_VARS)
+
+    def sumcheck():
+        poly = MultilinearPoly.from_ints(ctx, values)
+        check(protocol.verify(poly, fused.prove(poly)), "profiled sumcheck refused")
+
+    def layers():
+        proved = gkr.prove_layers(circuit, inputs)
+        check(gkr.verify_layers(proved.proof, circuit, proved.input_evals).verified,
+              "profiled verify_layers refused")
+
+    def whole():
+        check(gkr.verify(gkr.prove(circuit, inputs, taus=taus), circuit), "profiled verify refused")
+
+    def ntt_path():
+        for x in ntt_inputs.values():
+            for _ in range(2):
+                tn.ntt(rctx, tn.ntt(rctx, x), inverse=True)
+        tn.fft_interpolate(rctx.spec, tn.fft_evaluate(ntt_poly))
+
+    out = {}
+    for name, fn in (("sumcheck", sumcheck), ("gkr_walk", layers), ("gkr_kzg", whole),
+                     ("ntt", ntt_path)):
+        out[name] = profile_path(fn)
+        torch.cuda.empty_cache()
+    return out
 
 
 # ----------------------------------------------------------------------
@@ -1448,6 +1624,8 @@ def main() -> int:
         for needle in needles:
             for line in resource_usage(_build.build_log[stem], needle):
                 say(f"    {line}")
+                if stem == "point_kernels":
+                    check("0 bytes spill stores" in line, f"{needle} spills registers")
     say(f"    host Keccak backend: {hk.backend()}")
     check(hk.backend() == "c", "the host Keccak fell back to pure Python")
 
@@ -1502,9 +1680,12 @@ def main() -> int:
     phase_ntt_ties(rctx, ntt_results, ntt_poly, ntt_evals, ntt_interp)
     say("[13] times of the NTT path")
     ntt_times = phase_ntt_times(rctx, ntt_results)
-    del ntt_results, ntt_poly, ntt_evals, ntt_interp
+    ntt_inputs = {log_n: r[0] for log_n, r in ntt_results.items()}
+    del ntt_results, ntt_evals, ntt_interp
     torch.cuda.empty_cache()
     phase_gkr_launches_a_round(gctx)
+    say("[14] each path once more under torch.profiler: the kernels' device time at real widths")
+    profiles = phase_profiles(ctx, gctx, rctx, circuit, inputs, taus, ntt_inputs, ntt_poly)
 
     kernels = []
     for name in fk.KERNEL_NAMES + pk.KERNEL_NAMES + nk.KERNEL_NAMES:
@@ -1521,7 +1702,7 @@ def main() -> int:
             "max_abs_err": errs[name], "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"], "library_ms": None,
         })
-    print_ranking(kernels)
+    print_ranking(kernels, profiles)
     say(f"total {time.time() - t_start:.1f}s")
     say(gpu)
     say(json.dumps({"kernels": kernels}))

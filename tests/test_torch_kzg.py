@@ -54,7 +54,7 @@ def test_lagrange_basis(kzg):
     assert [convert.host_point_from_zktpu(pt)
             for pt in jkzg.dc.unpack_points(jbasis.g1_lagrange_basis)] == basis
     assert [convert.host_point_from_zktpu(pt) for pt in jbasis.g2_taus] == kzg.g2_taus
-    carried = convert.kzg_from_zktpu(jbasis)
+    carried = convert.kzg_from_zktpu(jbasis, device="cpu")
     assert dc.unpack_points(carried.g1_lagrange_basis) == basis and carried.num_vars == 3
 
 

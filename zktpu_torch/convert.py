@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from .curve import bls12_381 as hc
+from .curve import device as dc
 from .gkr.protocol import GkrProof, KzgProof
 from .hash.keccak_device import pairs_to_lanes
 from .pcs.kzg import KZG
@@ -174,18 +175,20 @@ def host_point_from_zktpu(pt):
     return (coord(pt[0]), coord(pt[1]))
 
 
-def kzg_from_zktpu(kzg, device="cpu") -> KZG:
+def kzg_from_zktpu(kzg, device=None) -> KZG:
     """A ``zktpu.pcs.kzg.KZG`` (its basis as arrays, its ``g2_taus``) -> this
-    package's, with the basis on ``device``."""
+    package's, with the basis on ``device`` (``None``: the card, or it raises)."""
+    device = dc.fq_ctx(device).device
     basis = tuple(
         t.to(device) for t in points_from_zktpu([np.asarray(c) for c in kzg.g1_lagrange_basis])
     )
     return KZG(basis, [host_point_from_zktpu(pt) for pt in kzg.g2_taus], int(kzg.num_vars))
 
 
-def kzg_proof_from_zktpu(input_proof, device="cpu") -> KzgProof:
-    """A ``zktpu.gkr.protocol.KzgProof`` -> this package's: the setup, the
-    commitment, both lists of quotient points, both opened evaluations."""
+def kzg_proof_from_zktpu(input_proof, device=None) -> KzgProof:
+    """A ``zktpu.gkr.protocol.KzgProof`` -> this package's: the setup (on
+    ``device``; ``None``: the card, or it raises), the commitment, both lists of
+    quotient points, both opened evaluations."""
     return KzgProof(
         kzg_setup=kzg_from_zktpu(input_proof.kzg_setup, device),
         commitment=host_point_from_zktpu(input_proof.commitment),

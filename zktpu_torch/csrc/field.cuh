@@ -1,7 +1,8 @@
 // Prime-field arithmetic on W little-endian 32-bit words held in registers.
 //
-// The one place every CUDA kernel of the package gets its arithmetic from: the
-// counterpart of zktpu/field/limb_major.py (add, sub, mont_mul at :102-143),
+// Where the package's CUDA kernels get their arithmetic from, the two G1 point
+// kernels excepted (they use fq381.cuh): the counterpart of
+// zktpu/field/limb_major.py (add, sub, mont_mul at :102-143),
 // which plays the same part for the Pallas kernels. The TPU version works on
 // 16-bit digits in uint32 lanes with delayed carries, because that chip has no
 // 64-bit integer path. This card multiplies 32x32->64 natively, so an element is

@@ -97,8 +97,9 @@ def point_add(p1, p2):
     return pk.point_add(fq_ctx(p1[0].device), p1, p2)
 
 
-def point_double(pt):
-    return pk.point_double(fq_ctx(pt[0].device), pt)
+def point_double(pt, times: int = 1):
+    """Jacobian doubling, lane by lane, ``times`` times over in one launch."""
+    return pk.point_double(fq_ctx(pt[0].device), pt, times)
 
 
 def where_pt(mask, a, b):

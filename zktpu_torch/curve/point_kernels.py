@@ -7,7 +7,9 @@ PyTorch version built on ``torch_backend`` that computes the same words:
 
   * ``point_add``    -- complete Jacobian addition (add-2007-bl; infinity,
                         P == Q and P == -Q handled), replaces ``_add_impl``
-  * ``point_double`` -- Jacobian doubling (dbl-2009-l), replaces ``_double_impl``
+  * ``point_double`` -- Jacobian doubling (dbl-2009-l), replaces ``_double_impl``;
+                        ``times=c`` doubles each lane c times in one launch, as
+                        zktpu's ``fori_loop`` of c doublings in its window combine
 
 A batch of points is a triple ``(X, Y, Z)`` of contiguous ``(..., 12)``
 ``torch.int32`` tensors of Montgomery words over Fq, all of one shape; the point
@@ -15,17 +17,21 @@ at infinity is ``Z == 0``. Any batch of one lane or more is taken as it is: the
 TPU kernels' limb-major ``(24, B)`` layout, 512-lane tile and padding with
 infinities answer that chip's registers and compiler and have no counterpart.
 
-Both are bound by operations on this card (16 and 7 Montgomery products of 12
-words a lane against 432 and 288 bytes); the notes in the CUDA source say what
-the kernels do about it.
+Both are bound by operations on this card (11 Montgomery products and 5
+squarings of 12 words a lane, and 2 and 5, against 432 and 288 bytes); the notes in the CUDA sources
+(``point_kernels.cu`` and its arithmetic core ``fq381.cuh``) say what the
+kernels do about it.
 
 Dispatch is by where the tensors lie and by nothing else: CPU tensors go to the
 plain version, CUDA tensors go to the kernel or the call raises. Kernel and plain
-version use the same formulas and every field operation returns the reduced
-representative, so their words are equal, lanes of no meaning included (P == -Q
-leaves arbitrary X3, Y3 beside Z3 == 0).
+version compute the same field values by the same formulas (the kernel keeps
+them in [0, 2p) between operations, the plain version reduced) and both store
+the canonical representative, so their words are equal, lanes of no meaning
+included (P == -Q leaves arbitrary X3, Y3 beside Z3 == 0).
 
-``launches`` counts, per kernel, the wrapper calls that launched it.
+``launches`` counts, per kernel, the wrapper calls that launched it, ``lanes``
+the lanes those launches covered (the sum of the batch widths), and
+``doublings`` the lane doublings of ``point_double``'s launches (width x times).
 """
 
 from __future__ import annotations
@@ -42,19 +48,38 @@ from ..field.torch_backend import FieldCtx
 KERNEL_NAMES = ("point_add", "point_double")
 #: kernel name -> launches made by its wrapper since the last reset
 launches: dict[str, int] = {name: 0 for name in KERNEL_NAMES}
+#: kernel name -> lanes of those launches
+lanes: dict[str, int] = {name: 0 for name in KERNEL_NAMES}
+#: lane doublings of point_double's launches
+doublings = 0
 
 
 def reset_launches() -> None:
+    global doublings
     for name in launches:
         launches[name] = 0
+        lanes[name] = 0
+    doublings = 0
 
 
 # ----------------------------------------------------------------------
 # plain PyTorch versions (any device; the CPU tests and the on-card checks)
 # ----------------------------------------------------------------------
 
-def point_double_plain(ctx: FieldCtx, pt):
-    """dbl-2009-l; infinity maps to infinity (Z3 = 2YZ)."""
+def _check_times(name: str, times: int) -> None:
+    if not isinstance(times, int) or times < 1:
+        raise ValueError(f"{name}: times must be an int >= 1, got {times!r}")
+
+
+def point_double_plain(ctx: FieldCtx, pt, times: int = 1):
+    """dbl-2009-l, ``times`` times over; infinity maps to infinity (Z3 = 2YZ)."""
+    _check_times("point_double_plain", times)
+    for _ in range(times):
+        pt = _double_once(ctx, pt)
+    return pt
+
+
+def _double_once(ctx: FieldCtx, pt):
     X, Y, Z = pt
     mul = lambda a, b: fb.mont_mul(ctx, a, b)  # noqa: E731
     add = lambda a, b: fb.add(ctx, a, b)  # noqa: E731
@@ -124,7 +149,7 @@ def point_add_plain(ctx: FieldCtx, p1, p2):
 _P = ctypes.c_void_p
 _SIGNATURES = {
     "zk_point_add": [_P] * 9 + [ctypes.c_longlong, _P, ctypes.c_uint32, _P],
-    "zk_point_double": [_P] * 6 + [ctypes.c_longlong, _P, ctypes.c_uint32, _P],
+    "zk_point_double": [_P] * 6 + [ctypes.c_longlong, ctypes.c_int, _P, ctypes.c_uint32, _P],
 }
 
 
@@ -187,30 +212,37 @@ def point_add(ctx: FieldCtx, p1, p2):
         return point_add_plain(ctx, p1, p2)
     lib = library()
     out = tuple(torch.empty_like(t) for t in p1)
+    n = p1[0].numel() // ctx.num_words
     with torch.cuda.device(ctx.device):
         err = lib.zk_point_add(
             *(t.data_ptr() for t in p1), *(t.data_ptr() for t in p2),
-            *(t.data_ptr() for t in out), p1[0].numel() // ctx.num_words,
+            *(t.data_ptr() for t in out), n,
             ctx.p_words_c, ctx.n0_prime32, torch.cuda.current_stream(ctx.device).cuda_stream,
         )
     _raise_on(err, "point_add")
     launches["point_add"] += 1
+    lanes["point_add"] += n
     return out
 
 
-def point_double(ctx: FieldCtx, pt):
-    """Jacobian doubling of a batch, lane by lane."""
+def point_double(ctx: FieldCtx, pt, times: int = 1):
+    """Jacobian doubling of a batch, lane by lane, ``times`` >= 1 times over:
+    one launch whatever ``times`` is."""
+    global doublings
     _check_point(ctx, "point_double", pt)
+    _check_times("point_double", times)
     if pt[0].device.type == "cpu":
-        return point_double_plain(ctx, pt)
+        return point_double_plain(ctx, pt, times)
     lib = library()
     out = tuple(torch.empty_like(t) for t in pt)
+    n = pt[0].numel() // ctx.num_words
     with torch.cuda.device(ctx.device):
         err = lib.zk_point_double(
-            *(t.data_ptr() for t in pt), *(t.data_ptr() for t in out),
-            pt[0].numel() // ctx.num_words,
+            *(t.data_ptr() for t in pt), *(t.data_ptr() for t in out), n, times,
             ctx.p_words_c, ctx.n0_prime32, torch.cuda.current_stream(ctx.device).cuda_stream,
         )
     _raise_on(err, "point_double")
     launches["point_double"] += 1
+    lanes["point_double"] += n
+    doublings += n * times
     return out

@@ -22,8 +22,10 @@ They return exact *integer* sums of the Montgomery words as ``W + EXTRA_WORDS``
 clean 32-bit words per row (the same integers as the reference's ``N + 2`` digit
 rows); ``lazy_rows_to_ints`` or ``sumcheck.fused._canonicalize_rows`` reduce them.
 
-``launches`` counts, per kernel, the wrapper calls that launched it. Nothing else
-touches the counts, so a run can show that it went through the kernels.
+``launches`` counts, per kernel, the wrapper calls that launched it, and
+``lanes`` the entries those launches covered (table rows; for ``fold`` all rows
+of the stack, for ``gkr_round`` the entries of one table). Nothing else touches
+the counts, so a run can show that it went through the kernels.
 """
 
 from __future__ import annotations
@@ -45,6 +47,8 @@ MAX_SUM_BLOCKS = 1024
 KERNEL_NAMES = ("mont_mul", "fold", "halves_sums", "fold_and_halves", "gkr_round")
 #: kernel name -> launches made by its wrapper since the last reset
 launches: dict[str, int] = {name: 0 for name in KERNEL_NAMES}
+#: kernel name -> entries of those launches
+lanes: dict[str, int] = {name: 0 for name in KERNEL_NAMES}
 
 _WORD_MASK = 0xFFFFFFFF
 
@@ -52,6 +56,7 @@ _WORD_MASK = 0xFFFFFFFF
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
+        lanes[name] = 0
 
 
 def lazy_rows_to_ints(ctx: FieldCtx, rows, from_mont: bool = True) -> list[int]:
@@ -208,6 +213,7 @@ def mont_mul(ctx: FieldCtx, a, b):
         )
     _raise_on(err, "mont_mul")
     launches["mont_mul"] += 1
+    lanes["mont_mul"] += a.numel() // ctx.num_words
     return out
 
 
@@ -245,6 +251,7 @@ def fold(ctx: FieldCtx, table, r):
         )
     _raise_on(err, "fold")
     launches["fold"] += 1
+    lanes["fold"] += lead_n * size
     return out
 
 
@@ -268,6 +275,7 @@ def halves_sums(ctx: FieldCtx, table):
         )
     _raise_on(err, "halves_sums")
     launches["halves_sums"] += 1
+    lanes["halves_sums"] += size
     return rows
 
 
@@ -294,6 +302,7 @@ def fold_and_halves(ctx: FieldCtx, table, r):
         )
     _raise_on(err, "fold_and_halves")
     launches["fold_and_halves"] += 1
+    lanes["fold_and_halves"] += size
     return out, rows
 
 
@@ -319,4 +328,5 @@ def gkr_round(ctx: FieldCtx, tables):
         )
     _raise_on(err, "gkr_round")
     launches["gkr_round"] += 1
+    lanes["gkr_round"] += size
     return rows

@@ -18,7 +18,9 @@ The counterpart of ``zktpu/msm/pippenger.py``, stage for stage:
    sort, one more pair round -> a dense (W, NBUCK) bucket table.
 5. **Bucket reduction**: suffix sums T_j = sum_{k>=j} B_k by Kogge-Stone shifts,
    then sum_j T_j = sum_k k*B_k by a pairwise tree.
-6. **Window combine**: a Horner chain of c doublings and one addition a window.
+6. **Window combine**: a Horner chain of c doublings (one ``point_double``
+   launch with ``times=c``, as the JAX package's ``fori_loop``) and one
+   addition a window.
 
 Eager PyTorch is staged by nature, one launch a stage at whatever width the
 stage has, so what the JAX package adds to keep its compiler's bill down has no
@@ -255,13 +257,12 @@ def _weighted_reduce_staged(buckets):
 
 def _horner_multi(per_window, c: int):
     """Window combine over (S, W, 12) per-segment tables -> (S, 12):
-    acc = ((R_{W-1} * 2^c + R_{W-2}) * 2^c + ...), c doublings and one addition
-    a window."""
+    acc = ((R_{W-1} * 2^c + R_{W-2}) * 2^c + ...): a window is one launch of c
+    doublings and one addition."""
     num_windows = per_window[0].shape[1]
     acc = tuple(v[:, num_windows - 1].contiguous() for v in per_window)
     for w in range(num_windows - 2, -1, -1):
-        for _ in range(c):
-            acc = dc.point_double(acc)
+        acc = dc.point_double(acc, times=c)
         acc = dc.point_add(acc, tuple(v[:, w].contiguous() for v in per_window))
     return acc
 

@@ -23,7 +23,8 @@ the plain version, a CUDA tensor goes to the kernel or the call raises. Both
 kernels take every power-of-two size from 1 and BN254 Fr / BLS12-381 Fr tables
 (8 words an element).
 
-``launches`` counts, per kernel, the wrapper calls that launched it.
+``launches`` counts, per kernel, the wrapper calls that launched it, and
+``lanes`` the table entries those launches covered.
 """
 
 from __future__ import annotations
@@ -45,11 +46,14 @@ LOG_TILE = 10
 KERNEL_NAMES = ("ntt_phase1", "ntt_stage")
 #: kernel name -> launches made by its wrapper since the last reset
 launches: dict[str, int] = {name: 0 for name in KERNEL_NAMES}
+#: kernel name -> table entries of those launches
+lanes: dict[str, int] = {name: 0 for name in KERNEL_NAMES}
 
 
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
+        lanes[name] = 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -191,6 +195,7 @@ def ntt_phase1(ctx: FieldCtx, x, tw, log_tile: int):
         )
     fk._raise_on(err, "ntt_phase1")
     launches["ntt_phase1"] += 1
+    lanes["ntt_phase1"] += 1 << log_n
     return out
 
 
@@ -212,4 +217,5 @@ def ntt_stage(ctx: FieldCtx, x, tw, stage: int):
         )
     fk._raise_on(err, "ntt_stage")
     launches["ntt_stage"] += 1
+    lanes["ntt_stage"] += 1 << log_n
     return out
