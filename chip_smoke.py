@@ -12,7 +12,8 @@ started together), then
   2. holds each kernel against its plain PyTorch version on the card, word for
      word (tolerance 0: this is integer arithmetic), for BN254 Fq and BLS12-381
      Fr at sizes from 2 to 2^20 and BLS12-381 Fq (12 words) up to 4096, with
-     edge values and unreduced operands; the two G1 point kernels at widths 1,
+     edge values and unreduced operands, and gkr_round on stacks of p - 1 at
+     2^20 (its column sums at their largest); the two G1 point kernels at widths 1,
      2, 33, 127, 128, 129, 4096 and 2^20 with infinite, equal, opposite and
      re-scaled operands and coordinates 0, 1 and p - 1 mixed in, point_double
      repeated 1, 2 and 16 times (2^20: once);
@@ -32,7 +33,8 @@ started together), then
      inputs, the dense one equals the lazy one at 2^8, the card's equals the
      CPU's at 2^10, and the 2^16 proof hashes to a stored digest;
   7. times the first two paths and each kernel (CUDA events, median), beside
-     each kernel's plain version and the least time the card could take;
+     each kernel's plain version and the least time the card could take
+     (gkr_round beside its time before the redesign);
   8. drives the third main path at full size: the whole GKR proof of the same
      2^20-input circuit with its multilinear-KZG input proof
      (``gkr.protocol.prove`` -> ``gkr.protocol.verify``: the SRS comb, the
@@ -53,8 +55,9 @@ started together), then
      infinities;
  11. holds the two NTT kernels against their plain versions on BN254 Fr tables
      with 0, 1, r - 1 and R mod r entries, forward and inverse twiddles:
-     ``ntt_phase1`` at 1 to 2^22 entries, ``ntt_stage`` at every stage of 2^12,
-     2^20 and 2^22; the card's twiddle table equals the CPU's;
+     ``ntt_phase1`` at every size from 1 to 2^22 entries and every tile it
+     takes there, ``ntt_stage`` at every stage of 2^12, 2^20 and 2^22; the
+     card's twiddle table equals the CPU's;
  12. drives the fourth main path: ``ntt.ntt`` forward and inverse on 2^20- and
      2^22-entry tables (values below 2^256 from numpy seed 0, reduced by
      ``to_mont``), then ``fft_evaluate`` -> ``fft_interpolate`` at 2^20 through
@@ -62,7 +65,8 @@ started together), then
      against the host's Horner evaluation, and the card's 2^12 transforms
      against the CPU's;
  13. times both NTT kernels at 2^20 and 2^22 beside their plain versions and
-     bounds, the twiddle build, warm transforms, and ``fft_evaluate`` /
+     bounds (ntt_phase1 beside its time before the redesign), the twiddle
+     build, warm transforms, and ``fft_evaluate`` /
      ``fft_interpolate`` with their host packing apart.
 
 Last, each of the four paths runs once more under ``torch.profiler``, and the
@@ -161,9 +165,9 @@ TIMED_RUNS = 10
 #: the NTT path: BN254 Fr tables of 2^20 and 2^22 entries (bench.py:328-330);
 #: fft_evaluate / fft_interpolate at the first size
 NTT_LOG_SIZES = (20, 22)
-#: ntt_phase1 against its plain version at these sizes (log2), and ntt_stage at
-#: these (log2 size, stages)
-NTT_PHASE1_CHECK_LOGS = (0, 1, 3, 10, 12, 20, 22)
+#: ntt_phase1 against its plain version at these sizes (log2), each at every
+#: tile it takes, and ntt_stage at these (log2 size, stages)
+NTT_PHASE1_CHECK_LOGS = tuple(range(0, 23))
 NTT_STAGE_CHECKS = tuple((log_n, tuple(range(1, log_n + 1))) for log_n in (12, 20, 22))
 NTT_CPU_TIE_LOG = 12
 
@@ -173,6 +177,12 @@ NTT_CPU_TIE_LOG = 12
 # and high half).
 HBM_BYTES_PER_S = 3.35e12
 INT32_MAD_PER_S = 132 * 64 * 1.98e9
+
+#: the times of gkr_round (at 2^20 and 2^24 entries) and ntt_phase1 (at 2^20 and
+#: 2^22) before their redesign (ms, CUDA events, L2 flushed; chip_smoke.py on an
+#: NVIDIA H100 80GB HBM3 at 700 W, PERF.md section 6)
+KERNEL_MS_BEFORE = {("gkr_round", 1 << 20): 0.1417, ("gkr_round", 1 << 24): 1.8577,
+                    ("ntt_phase1", 1 << 20): 0.2310, ("ntt_phase1", 1 << 22): 0.8480}
 
 KERNEL_SOURCE = "zktpu_torch/csrc/sumcheck_kernels.cu"
 POINT_KERNEL_SOURCE = "zktpu_torch/csrc/point_kernels.cu"
@@ -421,6 +431,14 @@ def phase_kernels_vs_plain() -> dict[str, int]:
             for name, err in errs.items():
                 check(err == 0, f"{name} differs from its plain version ({spec.name}, size {size})")
                 worst[name] = max(worst[name], err)
+        if spec.num_words == 8:
+            # every entry p - 1: the column sums of the three rows at their largest
+            size = CHECK_SIZES[-1]
+            stack = ctx.to_device(np.broadcast_to(
+                raw_words(ctx, spec.modulus - 1), (2, 2, size, ctx.num_words)).copy())
+            err = max_abs_err(fk.gkr_round(ctx, stack), fk.gkr_round_plain(ctx, stack))
+            say(f"  {spec.name} size {size}, every entry p - 1: gkr_round={err}")
+            check(err == 0, f"gkr_round differs from its plain version on p - 1 ({spec.name})")
     return worst
 
 
@@ -660,10 +678,13 @@ def time_kernels_at(ctx, rng, flush, r, size: int) -> dict[str, dict]:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         }
         out[name] = rec
+        before = KERNEL_MS_BEFORE.get((name, size))
         say(f"  {name} 2^{size.bit_length() - 1}: {cold:.4f} ms cold L2 "
-            f"({rec['gb_per_s']:.0f} GB/s of {nbytes} bytes), {warm:.4f} ms warm, "
+            + (f"(before the redesign: {before:.4f}) " if before else "")
+            + f"({rec['gb_per_s']:.0f} GB/s of {nbytes} bytes), {warm:.4f} ms warm, "
             f"plain {plain_ms:.2f} ms, bound {rec['bound_ms']:.4f} ms by {rec['bound_by']} "
-            f"(bytes {t_bytes:.4f} ms, operations {t_ops:.4f} ms)")
+            f"(bytes {t_bytes:.4f} ms, operations {t_ops:.4f} ms; {rec['bound_ms'] / cold:.1%} "
+            f"of it)")
     return out
 
 
@@ -1274,12 +1295,17 @@ def phase_ntt_kernels_vs_plain() -> dict[str, int]:
         errs = []
         for log_n in NTT_PHASE1_CHECK_LOGS:
             x = random_table(ctx, rng, 1 << log_n, edges=edges)
-            tiles = {min(nk.LOG_TILE, log_n)} | ({4} if log_n == NTT_CPU_TIE_LOG else set())
-            for log_tile in sorted(tiles):
-                err = max_abs_err(nk.ntt_phase1(ctx, x, tws[log_n], log_tile),
-                                  nk.ntt_phase1_plain(ctx, x, tws[log_n], log_tile))
+            # the plain version at tile 2^k is the one at 2^(k-1) and one more plain stage
+            plain = nk.ntt_phase1_plain(ctx, x, tws[log_n], 0)
+            group = 0
+            for log_tile in range(min(nk.LOG_TILE, log_n) + 1):
+                if log_tile:
+                    plain = nk.ntt_stage_plain(ctx, plain, tws[log_n], log_tile)
+                err = max_abs_err(nk.ntt_phase1(ctx, x, tws[log_n], log_tile), plain)
                 note("ntt_phase1", err, f"2^{log_n}, tile 2^{log_tile}, inverse={inverse}")
-                errs.append(f"2^{log_n}/{log_tile}={err}")
+                group = max(group, err)
+            errs.append(f"2^{log_n}/0..{min(nk.LOG_TILE, log_n)}={group}")
+            del x, plain
         for log_n, stages in NTT_STAGE_CHECKS:
             x = random_table(ctx, rng, 1 << log_n, edges=edges)
             group = 0
@@ -1290,7 +1316,7 @@ def phase_ntt_kernels_vs_plain() -> dict[str, int]:
                 group = max(group, err)
             errs.append(f"ntt_stage 1..{stages[-1]} of 2^{log_n}={group}")
         torch.cuda.synchronize()
-        say(f"  bn254_fr {'inverse' if inverse else 'forward'}: ntt_phase1 (2^log_n/log tile=err) "
+        say(f"  bn254_fr {'inverse' if inverse else 'forward'}: ntt_phase1 (2^log_n/log tiles=err) "
             f"{' '.join(errs)}")
     say("  the card's twiddle tables == the CPU's at 2^12, forward and inverse")
     return worst
@@ -1434,9 +1460,11 @@ def phase_ntt_times(ctx, results) -> dict[int, dict[str, dict]]:
             time_events(lambda: nk.ntt_phase1_plain(ctx, x, tw, log_tile), 3, flush),
             *ntt_kernel_work("ntt_phase1", log_n))
         recs["ntt_phase1"] = rec
-        say(f"  ntt_phase1 2^{log_n}: {rec['ms']:.4f} ms cold L2, {rec['warm_ms']:.4f} ms warm, "
+        say(f"  ntt_phase1 2^{log_n}: {rec['ms']:.4f} ms cold L2 (before the redesign: "
+            f"{KERNEL_MS_BEFORE['ntt_phase1', 1 << log_n]:.4f}), {rec['warm_ms']:.4f} ms warm, "
             f"plain {rec['plain_ms']:.2f} ms, bound {rec['bound_ms']:.4f} ms by {rec['bound_by']} "
-            f"(bytes {rec['bytes_ms']:.4f} ms, operations {rec['ops_ms']:.4f} ms)")
+            f"(bytes {rec['bytes_ms']:.4f} ms, operations {rec['ops_ms']:.4f} ms; "
+            f"{rec['bound_ms'] / rec['ms']:.1%} of it)")
         stage_recs = []
         for stage in range(log_tile + 1, log_n + 1):
             rec = ntt_record(
@@ -1624,8 +1652,8 @@ def main() -> int:
         for needle in needles:
             for line in resource_usage(_build.build_log[stem], needle):
                 say(f"    {line}")
-                if stem == "point_kernels":
-                    check("0 bytes spill stores" in line, f"{needle} spills registers")
+                if stem != "sumcheck_kernels" or "<W=8>" in line:  # W = 12: no path runs it
+                    check("0 bytes spill stores" in line, f"{line.split(':')[0]} spills registers")
     say(f"    host Keccak backend: {hk.backend()}")
     check(hk.backend() == "c", "the host Keccak fell back to pure Python")
 

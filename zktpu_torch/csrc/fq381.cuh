@@ -29,16 +29,19 @@
 // leaves them. The modulus is compiled in (BLS12-381 Fq only); the launchers
 // check that the caller's modulus is this one.
 //
-// The carry flag passes between consecutive asm statements: each primitive is
-// one PTX instruction, and no code between two of them writes the flag (only
-// .cc instructions do, and only these primitives emit them). Built without
-// CUDA (a host C++ compiler, as the CPU tests do), the primitives emulate the
-// instructions on a thread-local flag, so the same arithmetic can be held
-// against the plain PyTorch version without a card.
+// The primitives, one PTX instruction each, are carry.cuh's, shared with
+// mont.cuh: the carry flag passes between consecutive asm statements, and no
+// code between two of them writes the flag (only .cc instructions do, and only
+// these primitives emit them). Built without CUDA (a host C++ compiler, as the
+// CPU tests do), the primitives emulate the instructions on a thread-local
+// flag, so the same arithmetic can be held against the plain PyTorch version
+// without a card.
 
 #pragma once
 
 #include <cstdint>
+
+#include "carry.cuh"
 
 #ifdef __CUDACC__
 #define FQ_FN __device__ __forceinline__
@@ -68,76 +71,8 @@ FQ_HD constexpr uint32_t P2(int j) {
 }
 constexpr uint32_t N0 = 0xfffcfffdu;
 
-// ----------------------------------------------------------------------
-// one instruction each; "cc" writes the carry flag, "c" reads it
-// ----------------------------------------------------------------------
-
-#ifdef __CUDACC__
-
-#define FQ_OP3(name, ins)                                                   \
-  FQ_FN uint32_t name(uint32_t a, uint32_t b, uint32_t c) {                 \
-    uint32_t d;                                                             \
-    asm volatile(ins " %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(c)); \
-    return d;                                                               \
-  }
-#define FQ_OP2(name, ins)                                          \
-  FQ_FN uint32_t name(uint32_t a, uint32_t b) {                    \
-    uint32_t d;                                                    \
-    asm volatile(ins " %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));   \
-    return d;                                                      \
-  }
-FQ_OP3(mad_lo_cc, "mad.lo.cc.u32")
-FQ_OP3(madc_lo_cc, "madc.lo.cc.u32")
-FQ_OP3(madc_hi_cc, "madc.hi.cc.u32")
-FQ_OP3(madc_hi, "madc.hi.u32")
-FQ_OP2(add_cc, "add.cc.u32")
-FQ_OP2(addc_cc, "addc.cc.u32")
-FQ_OP2(addc, "addc.u32")
-FQ_OP2(sub_cc, "sub.cc.u32")
-FQ_OP2(subc_cc, "subc.cc.u32")
-FQ_OP2(subc, "subc.u32")
-#undef FQ_OP3
-#undef FQ_OP2
-
-FQ_FN uint32_t mul_hi(uint32_t a, uint32_t b) { return __umulhi(a, b); }
-
-#else  // host emulation of the same instructions
-
-inline thread_local uint32_t host_cf = 0;
-
-inline uint32_t emu_add(uint64_t s, bool cc) {
-  if (cc) host_cf = (uint32_t)(s >> 32);
-  return (uint32_t)s;
-}
-inline uint32_t emu_sub(uint64_t a, uint64_t b, bool cc) {
-  if (cc) host_cf = a < b;
-  return (uint32_t)(a - b);
-}
-inline uint32_t mad_lo_cc(uint32_t a, uint32_t b, uint32_t c) {
-  return emu_add((uint64_t)(uint32_t)(a * b) + c, true);
-}
-inline uint32_t madc_lo_cc(uint32_t a, uint32_t b, uint32_t c) {
-  return emu_add((uint64_t)(uint32_t)(a * b) + c + host_cf, true);
-}
-inline uint32_t madc_hi_cc(uint32_t a, uint32_t b, uint32_t c) {
-  return emu_add((((uint64_t)a * b) >> 32) + c + host_cf, true);
-}
-inline uint32_t madc_hi(uint32_t a, uint32_t b, uint32_t c) {
-  return emu_add((((uint64_t)a * b) >> 32) + c + host_cf, false);
-}
-inline uint32_t add_cc(uint32_t a, uint32_t b) { return emu_add((uint64_t)a + b, true); }
-inline uint32_t addc_cc(uint32_t a, uint32_t b) { return emu_add((uint64_t)a + b + host_cf, true); }
-inline uint32_t addc(uint32_t a, uint32_t b) { return emu_add((uint64_t)a + b + host_cf, false); }
-inline uint32_t sub_cc(uint32_t a, uint32_t b) { return emu_sub(a, b, true); }
-inline uint32_t subc_cc(uint32_t a, uint32_t b) { return emu_sub(a, (uint64_t)b + host_cf, true); }
-inline uint32_t subc(uint32_t a, uint32_t b) { return emu_sub(a, (uint64_t)b + host_cf, false); }
-inline uint32_t mul_hi(uint32_t a, uint32_t b) { return (uint32_t)(((uint64_t)a * b) >> 32); }
-
-struct alignas(16) uint4 {
-  uint32_t x, y, z, w;
-};
-
-#endif
+// the carry-flag primitives (mad_lo_cc, addc, ..., and their host emulation)
+using namespace carry;
 
 // ----------------------------------------------------------------------
 // Montgomery product and square, output in [0, 2p) for inputs in [0, 2p)

@@ -7,15 +7,18 @@
 // followed by one ntt_stage for each stage log_tile + 1 .. log_n.
 //
 // Tables are (n, 8) uint32 Montgomery words, element-major (the 256-bit fields
-// with a two-adic root: BN254 Fr, BLS12-381 Fr). The twiddles are ONE table of
+// with a two-adic root: BN254 Fr, BLS12-381 Fr). ntt_stage reads ONE table of
 // the n/2 Montgomery powers w^k of the n-th root w (or of its inverse): the
-// stage of span m = 2^s reads w_m^j = w^(j n/m) at stride n/m. (The TPU kernels
-// take per-stage tables concatenated or tiled up to a tile, which Mosaic's
-// BlockSpecs need; nothing here does.) Every power of two from 1 is taken.
+// stage of span m = 2^s reads w_m^j = w^(j n/m) at stride n/m. ntt_phase1 reads
+// the compact table of the powers of the 2^c-th root, c = min(10, log_n), that
+// its stages need: entry j = w^(j n / 2^c), j < 2^(c-1), which ntt_kernels.py
+// gathers from the big one. (The TPU kernels take per-stage tables
+// concatenated or tiled up to a tile, which Mosaic's BlockSpecs need; nothing
+// here does.) Every power of two from 1 is taken.
 //
-// A butterfly is u' = u + w v, v' = u - w v with the twiddle on the left of the
-// Montgomery product and every output reduced, so the words equal the plain
-// PyTorch version's.
+// A butterfly is u' = u + w v, v' = u - w v with every output reduced, so the
+// words equal the plain PyTorch version's. ntt_phase1 runs on mont.cuh's
+// carry-chain core, ntt_stage on field.cuh's 64-bit C++ products.
 //
 // Plain C interface (loaded with ctypes): each function launches on the stream
 // it is given, allocates nothing, does not synchronise, and returns
@@ -26,12 +29,12 @@
 #include <cuda_runtime.h>
 
 #include "field.cuh"
+#include "mont.cuh"
 
 namespace {
 
 constexpr int W = 8;
-constexpr int kLogMaxTile = 10;
-constexpr int kMaxTile = 1 << kLogMaxTile;
+constexpr int kLogMaxTile = ntt_tile::kLogChunk;
 constexpr int kStageThreads = 256;
 constexpr int kMaxLogN = 30;
 
@@ -48,51 +51,51 @@ __device__ __forceinline__ void butterfly(uint32_t (&u)[W], uint32_t (&v)[W],
 
 // ---------------------------------------------------------------------------
 // ntt_phase1 -- replaces zktpu/ntt/pallas_ntt.py:_phase1_kernel (:107).
-// One block a tile of T = 2^log_tile entries, T/2 threads (one butterfly each a
-// stage). Row base + k of the bit-reversed table is x[brev(base + k)]: the block
-// gathers its tile straight from x into shared memory (no separate gather pass,
-// no uploaded permutation), runs stages 1..log_tile there with a barrier
-// between stages, and writes the tile back in one coalesced pass.
+// One block a chunk of 2^c rows of the bit-reversed table, c = min(10, log_n),
+// 128 threads (2^c / 8, at least one) of eight rows each; stages 1..log_tile
+// (log_tile <= c) run over the chunk, which holds whole tiles.
 // Bound on this card: operations. log_tile products an entry pair against 64
-// bytes an entry pair moved; at T = 1024 that is 10 x 272 32-bit multiply-adds
-// for 64 bytes. The design keeps the tile in shared memory (32 KB at T = 1024,
-// under the 48 KB static limit) so the table crosses device memory once for
-// all ten stages; the twiddles (T/2 distinct ones) come from L2.
+// bytes an entry pair moved; at a 1024-entry tile that is 10 x 272 32-bit
+// multiply-adds for 64 bytes.
+// Design (mont.cuh, ntt_tile, has the steps and the layout): the first pass
+// gathers its rows from x into registers, runs stages 1-3 there (radix 8),
+// and later passes run up to three stages each between exchanges through
+// shared memory, the last one storing to `out`: at a 1024-entry tile four
+// passes and three exchanges. Shared memory holds the tile in word planes with
+// a swizzle that leaves no bank conflict (32 KB) and the chunk's twiddles,
+// staged once a block from the compact table (16 KB); twiddle w^0 takes no
+// product. Products on mont.cuh's carry chains. 48 KB a block: four blocks an
+// SM, 16 warps, so a thread may hold 128 registers.
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(kMaxTile / 2)
-ntt_phase1_kernel(const uint32_t* __restrict__ x, const uint32_t* __restrict__ tw,
-                  uint32_t* __restrict__ out, int log_n, int log_tile, const Mod m) {
-  __shared__ __align__(16) uint32_t tile[kMaxTile * W];
-  const int size = 1 << log_tile;
-  const long long base = (long long)blockIdx.x << log_tile;
-  uint32_t a[W];
-  for (int k = threadIdx.x; k < size; k += blockDim.x) {
-    // a 64-bit shift: log_n = 0 shifts by 32 and gives row 0
-    const long long src =
-        (long long)((unsigned long long)__brev((unsigned)(base + k)) >> (32 - log_n));
-    zk::load_words<W>(a, x + src * W);
-    zk::store_words<W>(tile + k * W, a);
-  }
+__global__ void __launch_bounds__(ntt_tile::kThreads, 4)
+ntt_phase1_kernel(const uint32_t* __restrict__ x, const uint32_t* __restrict__ ctw,
+                  uint32_t* __restrict__ out, int log_n, int log_chunk, int log_tile,
+                  const ntt_tile::Mod m) {
+  __shared__ ntt_tile::TilePlanes tile;
+  __shared__ ntt_tile::TwPlanes tw;
+  const int t = threadIdx.x;
+  const int lx = log_chunk > 3 ? log_chunk : 3;  // log2 of the rows the threads cover
+  const long long base = (long long)blockIdx.x << log_chunk;
+  ntt_tile::Rows e;
+  ntt_tile::gather(e, x, t, base, log_n, log_chunk);
+  ntt_tile::stage_twiddles(tw, ctw, t, blockDim.x, log_chunk);
   __syncthreads();
-  for (int s = 1; s <= log_tile; ++s) {
-    const int half = 1 << (s - 1);
-    for (int j = threadIdx.x; j < size / 2; j += blockDim.x) {
-      const int pos = j & (half - 1);
-      const int i0 = ((j >> (s - 1)) << s) + pos;
-      uint32_t u[W], v[W], w[W];
-      zk::load_words<W>(u, tile + i0 * W);
-      zk::load_words<W>(v, tile + (i0 + half) * W);
-      zk::load_words<W>(w, tw + ((long long)pos << (log_n - s)) * W);
-      butterfly(u, v, w, m);
-      zk::store_words<W>(tile + i0 * W, u);
-      zk::store_words<W>(tile + (i0 + half) * W, v);
+  int b = 0;
+  bool exchanged = false;
+  for (int first = 1; first <= log_tile; first += 3) {
+    const int nb = ntt_tile::window(first, lx);
+    if (nb != b) {
+      if (exchanged) __syncthreads();  // every thread has loaded the last exchange
+      ntt_tile::store_rows(tile, e, t, b);
+      __syncthreads();
+      ntt_tile::load_rows(e, tile, t, nb);
+      b = nb;
+      exchanged = true;
     }
-    __syncthreads();
+    const int last = first + 2 < log_tile ? first + 2 : log_tile;
+    ntt_tile::run_stages(e, tw, t, b, first, last, log_chunk, m);
   }
-  for (int k = threadIdx.x; k < size; k += blockDim.x) {
-    zk::load_words<W>(a, tile + k * W);
-    zk::store_words<W>(out + (base + k) * W, a);
-  }
+  ntt_tile::scatter(out, e, t, b, base, log_chunk);
 }
 
 // ---------------------------------------------------------------------------
@@ -135,18 +138,26 @@ Mod make_modulus(const uint32_t* p_host, uint32_t n0) {
 
 extern "C" {
 
-// x, out: (2^log_n, 8) words; tw: (2^(log_n - 1), 8) words (unread when
-// log_tile = 0); 0 <= log_tile <= min(10, log_n), log_n <= 30
-int zk_ntt_phase1(const void* x, const void* tw, void* out, int log_n, int log_tile,
+// x, out: (2^log_n, 8) words; ctw: the compact twiddles, (2^(c - 1), 8) words,
+// c = min(10, log_n) (unread when log_tile = 0); 0 <= log_tile <= c,
+// log_n <= 30
+int zk_ntt_phase1(const void* x, const void* ctw, void* out, int log_n, int log_tile,
                   const uint32_t* p, uint32_t n0, void* stream) {
   if (log_n < 0 || log_n > kMaxLogN || log_tile < 0 || log_tile > kLogMaxTile ||
       log_tile > log_n)
     return -1;
-  const unsigned blocks = 1u << (log_n - log_tile);
-  const unsigned threads = log_tile ? 1u << (log_tile - 1) : 1u;
+  static const cudaError_t carveout = cudaFuncSetAttribute(
+      ntt_phase1_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+      cudaSharedmemCarveoutMaxShared);  // room for four 48 KB blocks an SM
+  if (carveout != cudaSuccess) return (int)carveout;
+  const int log_chunk = log_n < kLogMaxTile ? log_n : kLogMaxTile;
+  const unsigned blocks = 1u << (log_n - log_chunk);
+  const unsigned threads = log_chunk > 3 ? 1u << (log_chunk - 3) : 1u;
+  ntt_tile::Mod m;
+  for (int j = 0; j < W; ++j) m.p[j] = p[j];
+  m.n0 = n0;
   ntt_phase1_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)x, (const uint32_t*)tw, (uint32_t*)out, log_n, log_tile,
-      make_modulus(p, n0));
+      (const uint32_t*)x, (const uint32_t*)ctw, (uint32_t*)out, log_n, log_chunk, log_tile, m);
   return (int)cudaGetLastError();
 }
 

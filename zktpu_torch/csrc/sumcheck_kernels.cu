@@ -1,12 +1,15 @@
 // The sumcheck / multilinear hot loops as CUDA kernels for Hopper (sm_90a).
 //
 // Five kernels, each the counterpart of one Pallas TPU kernel of
-// zktpu/field/pallas_kernels.py. All share one first design: one thread per
-// field element (gkr_round: per index of the half-cube), the element's W words
-// moved as 16-byte vectors and held in registers (field.cuh), a grid-stride
-// loop, no shared memory except for the block reduction of the summing kernels. Tables are (size, W) uint32 words,
-// element-major; every power-of-two size from 2 up is taken, the ragged edge is
-// masked by the loop bound.
+// zktpu/field/pallas_kernels.py. Four share one design: one thread per field
+// element, the element's W words moved as 16-byte vectors and held in
+// registers, arithmetic from field.cuh (64-bit C++ products), a grid-stride
+// loop, no shared memory except for the block reduction of the summing
+// kernels. gkr_round differs: one thread per index of the half-cube reads the
+// index's eight elements once and forms all three round values, on mont.cuh's
+// carry-chain products. Tables are (size, W) uint32 words, element-major;
+// every power-of-two size from 2 up is taken, the ragged edge is masked by the
+// loop bound.
 //
 // Plain C interface (loaded with ctypes): every function launches on the stream
 // it is given, allocates nothing, does not synchronise, and returns
@@ -18,6 +21,7 @@
 #include <cuda_runtime.h>
 
 #include "field.cuh"
+#include "mont.cuh"
 
 namespace {
 
@@ -25,9 +29,10 @@ constexpr int kThreads = 256;
 
 using zk::Modulus;
 
-template <int W>
-Modulus<W> make_modulus(const uint32_t* p_host, uint32_t n0) {
-  Modulus<W> m;
+// zk::Modulus<W> (field.cuh) or mont::Modulus<W> (mont.cuh): the same words
+template <int W, template <int> class Mod = Modulus>
+Mod<W> make_modulus(const uint32_t* p_host, uint32_t n0) {
+  Mod<W> m;
   for (int j = 0; j < W; ++j) m.p[j] = p_host[j];
   m.n0 = n0;
   return m;
@@ -117,30 +122,30 @@ __device__ __forceinline__ void block_reduce_store(uint64_t (&acc)[W], uint64_t*
   }
 }
 
-// partials (k, nb, W) uint64 -> rows (k, W + 1) clean words. One block per row.
-template <int W>
+// partials (k, nb, C) uint64 column sums -> rows (k, W + 1) clean words, C = W
+// or W + 1 columns. One block per row.
+template <int W, int C = W>
 __global__ void __launch_bounds__(kThreads)
 finish_rows_kernel(const uint64_t* __restrict__ partials, int nb, uint32_t* __restrict__ rows) {
-  __shared__ uint64_t cols[W];
+  __shared__ uint64_t cols[C];
   const int h = blockIdx.x;
-  uint64_t acc[W];
+  uint64_t acc[C];
 #pragma unroll
-  for (int j = 0; j < W; ++j) acc[j] = 0;
+  for (int j = 0; j < C; ++j) acc[j] = 0;
   for (int b = threadIdx.x; b < nb; b += blockDim.x) {
-    const uint64_t* row = partials + ((size_t)h * nb + b) * W;
+    const uint64_t* row = partials + ((size_t)h * nb + b) * C;
 #pragma unroll
-    for (int j = 0; j < W; ++j) acc[j] += row[j];
+    for (int j = 0; j < C; ++j) acc[j] += row[j];
   }
-  block_reduce_store<W>(acc, cols);
+  block_reduce_store<C>(acc, cols);
   __syncthreads();
   if (threadIdx.x == 0) {
     uint64_t c = 0;
-    for (int j = 0; j < W; ++j) {
-      const uint64_t v = cols[j] + c;
+    for (int j = 0; j <= W; ++j) {
+      const uint64_t v = (j < C ? cols[j] : 0) + c;
       rows[h * (W + 1) + j] = (uint32_t)v;
       c = v >> 32;
     }
-    rows[h * (W + 1) + W] = (uint32_t)c;
   }
 }
 
@@ -209,56 +214,78 @@ fold_and_halves_kernel(const uint32_t* __restrict__ table, const uint32_t* __res
 // v_0 = a, v_1 = b, v_2 = b + (b - a) mod p. Row t is the exact integer sum over
 // i of term_t(i) = v_t[0][0] * v_t[0][1] + v_t[1][0] * v_t[1][1] mod p (two
 // Montgomery products, one modular add), as W + 1 clean words.
-// Bound: the first kernel here that arithmetic may bound. An index costs six
-// Montgomery products against 8 elements read; at W = 8 the multiply-adds take
-// about as long as the bytes, at W = 12 longer.
-// Design: blockIdx.y picks t, so a thread holds one set of W column accumulators
-// and at most two elements besides the product in flight; holding all three t
-// at once (8 elements, their differences, three accumulator sets) would spill at
-// W = 12. The price is bytes: t = 0 reads only the first halves, t = 1 only the
-// second, t = 2 both, so the stack is read twice in all instead of once.
+// Bound on this card: operations, narrowly. An index costs six Montgomery
+// products against 8 elements read; at W = 8 the bytes take about 3/4 as long
+// as the multiply-adds (0.040 against 0.053 ms at 2^20 entries).
+// Design: one pass. A thread takes an index, loads its eight elements once
+// and forms all three round values (mont.cuh, gkr_round_index: product 0's
+// three values first, v_2 in a's registers, then product 1's, each term
+// summed at once), so the stack crosses memory once. A table too small to fill
+// the card is latency-bound instead: where the grid holds a thread for each
+// of the 3 half (index, t) pairs (the wrapper sizes it so while the pairs fit
+// in one wave of resident threads: up to 2^15 entries on 132 SMs), a thread
+// takes one pair (gkr_round_term), two products, not six, in its chain.
+// Products run on PTX carry chains (mont.cuh), every value canonical. A
+// thread's three running sums are exact integers of W + 1 words carried by
+// addc, kept in shared memory (a column of words a thread: no bank conflict),
+// not in registers: held there they took the 27 registers that made W = 8
+// spill under a 128 cap. The block sums them by columns there (3 (W + 1)
+// columns of 64-bit sums) and writes one row of partials per t, which
+// finish_rows ripples into clean words. W = 8 takes at most 128 registers (two
+// blocks an SM); W = 12, which no path runs, may take the whole register file.
 // ---------------------------------------------------------------------------
 template <int W>
-__device__ __forceinline__ void gkr_value(uint32_t (&v)[W], const uint32_t* __restrict__ a_ptr,
-                                          long long half, int t, const Modulus<W>& m) {
-  if (t == 0) {
-    zk::load_words<W>(v, a_ptr);
-  } else if (t == 1) {
-    zk::load_words<W>(v, a_ptr + half * W);
-  } else {
-    uint32_t a[W], b[W], d[W];
-    zk::load_words<W>(a, a_ptr);
-    zk::load_words<W>(b, a_ptr + half * W);
-    zk::sub_mod<W>(d, b, a, m);
-    zk::add_mod<W>(v, b, d, m);
-  }
-}
-
-template <int W>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, W == 8 ? 2 : 1)
 gkr_round_kernel(const uint32_t* __restrict__ tables, uint64_t* __restrict__ partials,
-                 long long half, const Modulus<W> m) {
-  const int t = blockIdx.y;
-  const long long size = 2 * half;
-  uint64_t acc[W];
+                 long long half, const mont::Modulus<W> m) {
+  constexpr int C = W + 1;
+  // each thread's three running sums, word j of row t at [t][j][thread]
+  __shared__ uint32_t sums[3][C][kThreads];
+  const int me = threadIdx.x;
 #pragma unroll
-  for (int j = 0; j < W; ++j) acc[j] = 0;
+  for (int t = 0; t < 3; ++t)
+#pragma unroll
+    for (int j = 0; j < C; ++j) sums[t][j][me] = 0;
+  auto add_term = [&](int t, const uint32_t (&term)[W]) {
+    uint32_t acc[C];
+#pragma unroll
+    for (int j = 0; j < C; ++j) acc[j] = sums[t][j][me];
+    mont::acc_add<W>(acc, term);
+#pragma unroll
+    for (int j = 0; j < C; ++j) sums[t][j][me] = acc[j];
+  };
   const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < half; i += stride) {
-    uint32_t prod[2][W];
-#pragma unroll
-    for (int p = 0; p < 2; ++p) {
-      uint32_t x[W], y[W];
-      gkr_value<W>(x, tables + ((2 * p + 0) * size + i) * W, half, t, m);
-      gkr_value<W>(y, tables + ((2 * p + 1) * size + i) * W, half, t, m);
-      zk::mont_mul<W>(prod[p], x, y, m);
-    }
-    uint32_t term[W];
-    zk::add_mod<W>(term, prod[0], prod[1], m);
-#pragma unroll
-    for (int j = 0; j < W; ++j) acc[j] += term[j];
+  const long long first = (long long)blockIdx.x * blockDim.x + me;
+  if (3 * half <= stride) {  // a small table: a thread an (index, t) pair
+    if (first < 3 * half)
+      mont::gkr_round_term<W>(add_term, (int)(first / half), tables, 2 * half, first % half, m);
+  } else {
+    for (long long i = first; i < half; i += stride)
+      mont::gkr_round_index<W>(add_term, tables, 2 * half, i, m);
   }
-  block_reduce_store<W>(acc, partials + ((size_t)t * gridDim.x + blockIdx.x) * W);
+
+  // The block's column sums, from shared memory: column c = t C + j holds
+  // kThreads words; eight threads sum a run of 32 each (staggered, so a warp's
+  // 32 reads hit 32 banks), and shuffles within the eight add the runs.
+  __syncthreads();
+  constexpr int kCols = 3 * C;
+  constexpr int kRuns = kThreads / 32;
+  const uint32_t* flat = &sums[0][0][0];
+  for (int base = 0; base < kCols * kRuns; base += kThreads) {
+    const int idx = base + me;
+    unsigned long long s = 0;
+    if (idx < kCols * kRuns) {
+      const uint32_t* run = flat + (idx / kRuns) * kThreads + (idx % kRuns) * 32;
+#pragma unroll 8
+      for (int q = 0; q < 32; ++q) s += run[(q + me) & 31];
+    }
+#pragma unroll
+    for (int off = kRuns / 2; off > 0; off >>= 1) s += __shfl_down_sync(0xffffffffu, s, off);
+    if (idx < kCols * kRuns && idx % kRuns == 0) {
+      const int c = idx / kRuns;
+      partials[((size_t)(c / C) * gridDim.x + blockIdx.x) * C + c % C] = s;
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -322,11 +349,12 @@ int launch_fold_and_halves(const void* table, const void* r, void* out, void* pa
 template <int W>
 int launch_gkr_round(const void* tables, void* partials, void* rows, long long size, int nb,
                      const uint32_t* p, uint32_t n0, cudaStream_t s) {
-  gkr_round_kernel<W><<<dim3(nb, 3), kThreads, 0, s>>>(
-      (const uint32_t*)tables, (uint64_t*)partials, size / 2, make_modulus<W>(p, n0));
+  gkr_round_kernel<W><<<nb, kThreads, 0, s>>>(
+      (const uint32_t*)tables, (uint64_t*)partials, size / 2, make_modulus<W, mont::Modulus>(p, n0));
   int err = (int)cudaGetLastError();
   if (err) return err;
-  finish_rows_kernel<W><<<3, kThreads, 0, s>>>((const uint64_t*)partials, nb, (uint32_t*)rows);
+  finish_rows_kernel<W, W + 1><<<3, kThreads, 0, s>>>((const uint64_t*)partials, nb,
+                                                      (uint32_t*)rows);
   return (int)cudaGetLastError();
 }
 
@@ -375,7 +403,7 @@ int zk_fold_and_halves(const void* table, const void* r, void* out, void* partia
                 launch_fold_and_halves<12>(table, r, out, partials, rows, size, nb, p, n0, s));
 }
 
-// tables: (2, 2, size, W); partials: (3, nb, W) uint64 scratch; rows: (3, W + 1) uint32
+// tables: (2, 2, size, W); partials: (3, nb, W + 1) uint64 scratch; rows: (3, W + 1) uint32
 int zk_gkr_round(const void* tables, void* partials, void* rows, long long size, int nb, int W,
                  const uint32_t* p, uint32_t n0, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;

@@ -31,6 +31,7 @@ the counts, so a run can show that it went through the kernels.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -191,6 +192,23 @@ def _sum_blocks(lib, per_row: int) -> int:
     return max(1, min(-(-per_row // threads), MAX_SUM_BLOCKS))
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _gkr_round_blocks(lib, device, half: int) -> int:
+    """A thread an (index, t) pair where all 3 half pairs fit in one wave of
+    resident threads (two blocks an SM: 128 registers a thread at W = 8), that
+    is, on small tables, where a launch's latency is its time; else a thread an
+    index. The kernel tells the two apart by the grid's size."""
+    threads = lib.zk_block_threads()
+    pairs = 3 * half
+    if pairs <= _sm_count(device) * 2 * threads:
+        return -(-pairs // threads)
+    return _sum_blocks(lib, half)
+
+
 # ----------------------------------------------------------------------
 # wrappers
 # ----------------------------------------------------------------------
@@ -318,8 +336,9 @@ def gkr_round(ctx: FieldCtx, tables):
     if tables.device.type == "cpu":
         return gkr_round_plain(ctx, tables)
     lib = library()
-    nb = _sum_blocks(lib, size // 2)
-    partials = torch.empty((3, nb, w), dtype=torch.int64, device=tables.device)
+    nb = _gkr_round_blocks(lib, tables.device, size // 2)
+    # per-block column sums of the three rows' W + 1 words
+    partials = torch.empty((3, nb, w + EXTRA_WORDS), dtype=torch.int64, device=tables.device)
     rows = torch.empty((3, w + EXTRA_WORDS), dtype=torch.int32, device=tables.device)
     with torch.cuda.device(ctx.device):
         err = lib.zk_gkr_round(

@@ -16,7 +16,10 @@ Twiddles: ``stage_twiddles`` keeps ONE device table of the n/2 Montgomery powers
 of the n-th root of unity (of its inverse for the inverse transform); the stage
 of span m = 2^s reads ``w_m^j = table[j * n/m]``. It is built on the device by
 doubling through the ``mont_mul`` kernel and cached per (context, log_n,
-direction).
+direction). Beside it, ``tile_twiddles`` keeps the compact table that the
+``ntt_phase1`` kernel stages into shared memory: the 2^(c-1) powers of the
+2^c-th root, c = min(LOG_TILE, log_n), gathered from the big table by index
+(no product), built and cached with it.
 
 Dispatch is by where the tensor lies and by nothing else: a CPU tensor goes to
 the plain version, a CUDA tensor goes to the kernel or the call raises. Both
@@ -40,7 +43,8 @@ from ..field import kernels as fk
 from ..field import torch_backend as fb
 from ..field.torch_backend import FieldCtx
 
-#: log2 of the phase-1 tile (1024 entries, 32 KB of shared memory a block)
+#: log2 of the phase-1 tile (1024 entries: 32 KB of shared memory a block, and
+#: 16 KB of twiddles)
 LOG_TILE = 10
 
 KERNEL_NAMES = ("ntt_phase1", "ntt_stage")
@@ -99,13 +103,35 @@ def build_twiddles(ctx: FieldCtx, log_n: int, inverse: bool):
 _TWIDDLES: dict = {}
 
 
+#: id(table) -> (table, its compact table), for every table of ``_TWIDDLES``:
+#: filled with it, and holding the table, so an id is never reused while its
+#: entry exists
+_TILE_TWIDDLES: dict = {}
+
+
 def stage_twiddles(ctx: FieldCtx, log_n: int, inverse: bool):
     """The cached twiddle table of ``build_twiddles``."""
     key = (ctx, log_n, bool(inverse))
     table = _TWIDDLES.get(key)
     if table is None:
         table = _TWIDDLES[key] = build_twiddles(ctx, log_n, inverse)
+        _TILE_TWIDDLES[id(table)] = (table, _gather_tile_twiddles(table, log_n))
     return table
+
+
+def _gather_tile_twiddles(tw, log_n: int):
+    c = min(LOG_TILE, log_n)
+    return tw[:: 1 << (log_n - c)].contiguous()
+
+
+def tile_twiddles(tw, log_n: int):
+    """The compact table of ``ntt_phase1``'s kernel for the (n/2, W) twiddle
+    table ``tw`` of 2^log_n entries: rows k 2^(log_n - c), k < 2^(c-1), of
+    ``tw``, c = min(LOG_TILE, log_n), i.e. the powers of the 2^c-th root, which
+    are all that stages 1..c read. Cached with ``stage_twiddles``' tables; for
+    any other table (an uncached ``build_twiddles``) gathered anew."""
+    hit = _TILE_TWIDDLES.get(id(tw))
+    return hit[1] if hit is not None else _gather_tile_twiddles(tw, log_n)
 
 
 # ----------------------------------------------------------------------
@@ -187,10 +213,11 @@ def ntt_phase1(ctx: FieldCtx, x, tw, log_tile: int):
     if x.device.type == "cpu":
         return ntt_phase1_plain(ctx, x, tw, log_tile)
     lib = library()
+    ctw = tile_twiddles(tw, log_n)
     out = torch.empty_like(x)
     with torch.cuda.device(ctx.device):
         err = lib.zk_ntt_phase1(
-            x.data_ptr(), tw.data_ptr(), out.data_ptr(), log_n, log_tile,
+            x.data_ptr(), ctw.data_ptr(), out.data_ptr(), log_n, log_tile,
             ctx.p_words_c, ctx.n0_prime32, fk._stream(ctx),
         )
     fk._raise_on(err, "ntt_phase1")
