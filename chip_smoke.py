@@ -13,7 +13,12 @@ started together), then
      word (tolerance 0: this is integer arithmetic), for BN254 Fq and BLS12-381
      Fr at sizes from 2 to 2^20 and BLS12-381 Fq (12 words) up to 4096, with
      edge values and unreduced operands, and gkr_round on stacks of p - 1 at
-     2^20 (its column sums at their largest); the two G1 point kernels at widths 1,
+     2^20 (its column sums at their largest); halves_sums and fold_and_halves at
+     every power of two from 2 to 2^20 (BLS12-381 Fq to 2^12), halves_sums on
+     raw words and on tables of all-ones words up to 2^24, fold_and_halves at
+     r = 0, 1, p - 1, R mod p and a random r, and each of the two twice back to
+     back on three grids (the tickets that elect the last blocks); the two G1
+     point kernels at widths 1,
      2, 33, 127, 128, 129, 4096 and 2^20 with infinite, equal, opposite and
      re-scaled operands and coordinates 0, 1 and p - 1 mixed in, point_double
      repeated 1, 2 and 16 times (2^20: once);
@@ -34,7 +39,8 @@ started together), then
      CPU's at 2^10, and the 2^16 proof hashes to a stored digest;
   7. times the first two paths and each kernel (CUDA events, median), beside
      each kernel's plain version and the least time the card could take
-     (gkr_round beside its time before the redesign);
+     (gkr_round, halves_sums and fold_and_halves beside their times before
+     the redesign; halves_sums beside a torch.sum of the same bytes);
   8. drives the third main path at full size: the whole GKR proof of the same
      2^20-input circuit with its multilinear-KZG input proof
      (``gkr.protocol.prove`` -> ``gkr.protocol.verify``: the SRS comb, the
@@ -71,7 +77,9 @@ started together), then
 
 Last, each of the four paths runs once more under ``torch.profiler``, and the
 nine kernels are ranked by their device time on the paths less the bound of the
-lanes they covered there.
+lanes they covered there; on each path the device runs one kernel a launch of
+``halves_sums`` and ``fold_and_halves`` and a ``finish_rows`` only after
+``gkr_round`` (none on the sumcheck path), or the script fails.
 
 Any failed comparison exits non-zero. The last line of the output is one JSON
 object, ``{"ok": true, "device": {...}}``; the line before it lists the nine
@@ -144,6 +152,16 @@ MSM_TIE_LANES = 1 << 10
 MSM_TIE_WINDOWS = (4, 8, 16)
 
 CHECK_SIZES = (2, 4, 64, 4096, 1 << 20)
+#: halves_sums and fold_and_halves against their plain versions at every power
+#: of two up to these (log2 size), by field
+SUM_CHECK_LOGS = ((BN254_FQ, 20), (BLS12_381_FR, 20), (BLS12_381_FQ, 12))
+#: halves_sums on tables whose every word is 0xFFFFFFFF (column sums at their
+#: largest), log2 size; the 12-word field at the last of SUM_CHECK_LOGS
+ALL_ONES_LOGS = (12, 20, 24)
+#: each one-launch kernel twice back to back at these sizes (log2), with the
+#: wrapper's own grid, with this many blocks a row, and on the one-block grid
+TICKET_LOGS = (13, 20)
+TICKET_BLOCKS = 7
 POINT_CHECK_WIDTHS = (1, 2, 33, 127, 128, 129, 4096, 1 << 20)
 #: point_double's repeat counts held against the plain version up to 4096 lanes
 #: (a plain doubling of 2^20 lanes takes some 0.4 s: there only once)
@@ -178,10 +196,14 @@ NTT_CPU_TIE_LOG = 12
 HBM_BYTES_PER_S = 3.35e12
 INT32_MAD_PER_S = 132 * 64 * 1.98e9
 
-#: the times of gkr_round (at 2^20 and 2^24 entries) and ntt_phase1 (at 2^20 and
-#: 2^22) before their redesign (ms, CUDA events, L2 flushed; chip_smoke.py on an
-#: NVIDIA H100 80GB HBM3 at 700 W, PERF.md section 6)
+#: the times of gkr_round, halves_sums and fold_and_halves (at 2^20 and 2^24
+#: entries) and ntt_phase1 (at 2^20 and 2^22) before their redesign (ms, CUDA
+#: events, L2 flushed; chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700 W,
+#: PERF.md section 6)
 KERNEL_MS_BEFORE = {("gkr_round", 1 << 20): 0.1417, ("gkr_round", 1 << 24): 1.8577,
+                    ("halves_sums", 1 << 20): 0.0283, ("halves_sums", 1 << 24): 0.1927,
+                    ("fold_and_halves", 1 << 20): 0.0370,
+                    ("fold_and_halves", 1 << 24): 0.3453,
                     ("ntt_phase1", 1 << 20): 0.2310, ("ntt_phase1", 1 << 22): 0.8480}
 
 KERNEL_SOURCE = "zktpu_torch/csrc/sumcheck_kernels.cu"
@@ -442,6 +464,63 @@ def phase_kernels_vs_plain() -> dict[str, int]:
     return worst
 
 
+def phase_sum_kernels_vs_plain() -> dict[str, int]:
+    """halves_sums and fold_and_halves, the one-launch kernels, at every size,
+    on their edge cases and back to back."""
+    t0 = time.time()
+    worst = {"halves_sums": 0, "fold_and_halves": 0}
+
+    def hold(name: str, got, want, what: str) -> None:
+        err = max(max_abs_err(g, v) for g, v in zip(got, want))
+        check(err == 0, f"{name} differs from its plain version ({what})")
+        worst[name] = max(worst[name], err)
+
+    for spec, top_log in SUM_CHECK_LOGS:
+        ctx = fb.get_ctx(spec)
+        w = ctx.num_words
+        p = spec.modulus
+        rng = np.random.default_rng(3)
+        challenges = [ctx.to_device(raw_words(ctx, v).copy())
+                      for v in (0, 1, p - 1, spec.R % p)]
+        for log_size in range(1, top_log + 1):
+            size = 1 << log_size
+            what = f"{spec.name}, size {size}"
+            table = random_table(ctx, rng, size, edges=(p - 1, 0, 1, p - 1))
+            raw = ctx.to_device(rng.integers(0, 1 << 32, size=(size, w), dtype=np.uint32))
+            for t in (table, raw):
+                hold("halves_sums", [fk.halves_sums(ctx, t)], [fk.halves_sums_plain(ctx, t)], what)
+            for r in challenges + [random_table(ctx, rng)]:
+                hold("fold_and_halves", fk.fold_and_halves(ctx, table, r),
+                     fk.fold_and_halves_plain(ctx, table, r), what)
+        for log_size in ALL_ONES_LOGS if w == 8 else (top_log,):
+            ones = torch.full((1 << log_size, w), -1, dtype=torch.int32, device=ctx.device)
+            hold("halves_sums", [fk.halves_sums(ctx, ones)], [fk.halves_sums_plain(ctx, ones)],
+                 f"{spec.name}, every word 0xFFFFFFFF, size 2^{log_size}")
+            del ones
+        for log_size in TICKET_LOGS if top_log >= TICKET_LOGS[-1] else ():
+            table = random_table(ctx, rng, 1 << log_size)
+            r = random_table(ctx, rng)
+            want_h = [fk.halves_sums_plain(ctx, table)]
+            want_f = fk.fold_and_halves_plain(ctx, table, r)
+            for blocks in (None, TICKET_BLOCKS, 0):
+                what = (f"{spec.name}, size 2^{log_size}, "
+                        f"{'own' if blocks is None else blocks} blocks a row, twice")
+                twice_h = [fk._launch_halves_sums(ctx, table, blocks) for _ in range(2)]
+                twice_f = [fk._launch_fold_and_halves(ctx, table, r, blocks) for _ in range(2)]
+                for got in twice_h:
+                    hold("halves_sums", [got], want_h, what)
+                for got in twice_f:
+                    hold("fold_and_halves", got, want_f, what)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        say(f"  {spec.name}: halves_sums and fold_and_halves at every size 2..2^{top_log}, "
+            f"r = 0, 1, p - 1, R mod p and random, all-ones tables"
+            + (", twice back to back on three grids" if top_log >= TICKET_LOGS[-1] else "")
+            + ": " + " ".join(f"{k}={v}" for k, v in worst.items()))
+    say(f"  (these checks took {time.time() - t0:.1f}s)")
+    return worst
+
+
 # ----------------------------------------------------------------------
 # phases 3 and 4: the main path and its tie to the reference
 # ----------------------------------------------------------------------
@@ -678,6 +757,16 @@ def time_kernels_at(ctx, rng, flush, r, size: int) -> dict[str, dict]:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         }
         out[name] = rec
+        if name == "halves_sums":
+            # a library reduction over the same bytes: signed columns, not the
+            # kernel's function, so not its library_ms; a yardstick of the rate
+            half = size // 2
+            rec["yardstick_ms"] = time_events(
+                lambda: torch.sum(table.view(2, half, ctx.num_words), dim=1, dtype=torch.int64),
+                TIMED_RUNS, flush)
+            say(f"  torch.sum(table.view(2, half, W), dim=1, dtype=torch.int64) "
+                f"2^{size.bit_length() - 1}: {rec['yardstick_ms']:.4f} ms cold L2 "
+                f"({nbytes / (rec['yardstick_ms'] * 1e-3) / 1e9:.0f} GB/s)")
         before = KERNEL_MS_BEFORE.get((name, size))
         say(f"  {name} 2^{size.bit_length() - 1}: {cold:.4f} ms cold L2 "
             + (f"(before the redesign: {before:.4f}) " if before else "")
@@ -1550,6 +1639,7 @@ def profile_path(fn) -> dict:
     t_run = time.time() - t0
     names = fk.KERNEL_NAMES + pk.KERNEL_NAMES + nk.KERNEL_NAMES + ("finish_rows",)
     device_ms = {name: 0.0 for name in names}
+    device_n = {name: 0 for name in names}
     pattern = re.compile(r"\b(" + "|".join(names) + r")_kernel\b")
     # the raw events, not key_averages(): a path launches up to some 600,000
     # kernels, and building the averaged tree takes minutes
@@ -1558,8 +1648,34 @@ def profile_path(fn) -> dict:
             found = pattern.search(e.name())
             if found:
                 device_ms[found.group(1)] += e.duration_ns() / 1e6
+                device_n[found.group(1)] += 1
     return {"launches": all_launches(), "lanes": all_lanes(), "doublings": pk.doublings,
-            "device_ms": device_ms, "seconds": t_run, "total_s": time.time() - t0}
+            "device_ms": device_ms, "device_n": device_n, "seconds": t_run,
+            "total_s": time.time() - t0}
+
+
+def check_one_launch(profiles: dict[str, dict]) -> None:
+    """halves_sums and fold_and_halves are one device kernel a wrapper launch,
+    and finish_rows runs after gkr_round alone: on every profiled path the
+    device's count of each kernel equals its wrapper's launches, so the
+    sumcheck path (1 + 19 launches, no gkr_round) runs no finish_rows."""
+    for path, p in profiles.items():
+        ran, launched = p["device_n"], p["launches"]
+        for name in fk._ONE_LAUNCH:
+            check(ran[name] == launched[name],
+                  f"{path}: {ran[name]} {name} kernels ran for {launched[name]} launches")
+        check(ran["finish_rows"] == launched["gkr_round"],
+              f"{path}: {ran['finish_rows']} finish_rows kernels ran for "
+              f"{launched['gkr_round']} gkr_round launches")
+    sumcheck = profiles["sumcheck"]
+    for name in fk._ONE_LAUNCH:
+        check(sumcheck["launches"][name] == EXPECTED_LAUNCHES[name],
+              f"profiled sumcheck: {sumcheck['launches'][name]} {name} launches")
+    check(sumcheck["device_n"]["finish_rows"] == 0, "finish_rows ran on the sumcheck path")
+    say("  one device kernel a launch of halves_sums and fold_and_halves on every path, "
+        "finish_rows only after gkr_round: " + ", ".join(
+            f"{path} {p['device_n']['halves_sums']} + {p['device_n']['fold_and_halves']}, "
+            f"finish_rows {p['device_n']['finish_rows']}" for path, p in profiles.items()))
 
 
 def print_ranking(kernels: list[dict], profiles: dict[str, dict]) -> list[dict]:
@@ -1584,7 +1700,9 @@ def print_ranking(kernels: list[dict], profiles: dict[str, dict]) -> list[dict]:
         say(f"    {r['name']}: {r['launches']} launches, {r['lanes']} lanes, {r['device_ms']:.3f} "
             f"device ms, bound {r['bound_ms']:.3f} ms, loss {r['loss_ms']:.3f} ms")
     finish = sum(p["device_ms"]["finish_rows"] for p in profiles.values())
-    say(f"    (finish_rows, the summing kernels' second pass: {finish:.3f} device ms)")
+    say(f"    (finish_rows, gkr_round's second pass: {finish:.3f} device ms; launches by path: "
+        + ", ".join(f"{path} {p['device_n']['finish_rows']}" for path, p in profiles.items())
+        + ")")
     say("  by path: " + "; ".join(
         f"{path} ({p['seconds']:.1f}s profiled, {p['total_s']:.1f}s with the summary): "
         + ", ".join(f"{n} {v:.2f}" for n, v in p["device_ms"].items() if v)
@@ -1646,7 +1764,8 @@ def main() -> int:
         f"{POINT_KERNEL_SOURCE} ({_build.build_seconds['point_kernels']:.1f}s) and "
         f"{NTT_KERNEL_SOURCE} ({_build.build_seconds['ntt_kernels']:.1f}s), side by side "
         f"in {time.time() - t0:.1f}s (0.0 = already built)")
-    for stem, needles in (("sumcheck_kernels", ("gkr_round_kernel",)),
+    for stem, needles in (("sumcheck_kernels", ("gkr_round_kernel", "halves_sums_kernel",
+                                                "fold_and_halves_kernel")),
                           ("point_kernels", ("point_add_kernel", "point_double_kernel")),
                           ("ntt_kernels", ("ntt_phase1_kernel", "ntt_stage_kernel"))):
         for needle in needles:
@@ -1654,11 +1773,22 @@ def main() -> int:
                 say(f"    {line}")
                 if stem != "sumcheck_kernels" or "<W=8>" in line:  # W = 12: no path runs it
                     check("0 bytes spill stores" in line, f"{line.split(':')[0]} spills registers")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    lib = fk.library()
+    for name in fk._SUMMING:
+        for w in (8, 12):
+            n = fk._resident_blocks(lib, torch.device("cuda"), name, w)
+            threads = (lib.zk_block_threads() if name == "gkr_round"
+                       else lib.zk_sum_threads(fk._SUMMING[name], w))
+            say(f"    {name} W = {w}: {threads} threads a block, {n} resident blocks "
+                f"({n / sms:g} an SM)")
     say(f"    host Keccak backend: {hk.backend()}")
     check(hk.backend() == "c", "the host Keccak fell back to pure Python")
 
     say("[2] each kernel against its plain PyTorch version (exact)")
     errs = phase_kernels_vs_plain()
+    for name, err in phase_sum_kernels_vs_plain().items():
+        errs[name] = max(errs[name], err)
     errs.update(phase_point_kernels_vs_plain())
 
     ctx = fb.get_ctx(BN254_FQ)
@@ -1714,6 +1844,7 @@ def main() -> int:
     phase_gkr_launches_a_round(gctx)
     say("[14] each path once more under torch.profiler: the kernels' device time at real widths")
     profiles = phase_profiles(ctx, gctx, rctx, circuit, inputs, taus, ntt_inputs, ntt_poly)
+    check_one_launch(profiles)
 
     kernels = []
     for name in fk.KERNEL_NAMES + pk.KERNEL_NAMES + nk.KERNEL_NAMES:

@@ -1,30 +1,43 @@
 #!/usr/bin/env python3
-"""`gkr_round` and `ntt_phase1` timed alone, to compare trees on one card.
+"""The redesigned kernels timed alone, to compare trees on one card.
 
 Run on a machine with one CUDA device, from the root of a tree of the repo:
 
-    python3 scripts/time_kernels.py TAG
+    python3 scripts/time_kernels.py TAG [PART ...]
 
-It prints, on lines that start with TAG:
+PART is one of ``gkr``, ``ntt``, ``sums`` (default: all three). It prints, on
+lines that start with TAG:
 
-  * ``gkr_round`` at every size from 2 to 2^24 entries (a BLS12-381 Fr stack):
-    the device microseconds of one call by ``torch.profiler``, the kernel and
-    its ``finish_rows`` pass apart (at real widths most calls are small, where
-    a launch's latency is its time and CUDA events would time the host); the
-    rows are held against the plain version up to 2^16;
-  * ``ntt_phase1`` at a 1024-entry tile on 2^20 and 2^22 BN254 Fr entries, and
-    ``point_add`` / ``point_double`` on 2^20 lanes: median milliseconds of 20
-    launches by CUDA events, L2 flushed before each; ``ntt_phase1`` is held
-    against its plain version at 2^12, every tile, first.
-  * the registers ``nvcc`` gave ``ntt_phase1`` and ``gkr_round``.
+  * the registers ``nvcc`` gave ``ntt_phase1``, ``gkr_round``, ``halves_sums``
+    and ``fold_and_halves``;
+  * ``gkr``: ``gkr_round`` at every size from 2 to 2^24 entries (a BLS12-381 Fr
+    stack): the device microseconds of one call by ``torch.profiler``, the
+    kernel and its ``finish_rows`` pass apart (at real widths most calls are
+    small, where a launch's latency is its time and CUDA events would time the
+    host); the rows are held against the plain version up to 2^16;
+  * ``ntt``: ``ntt_phase1`` at a 1024-entry tile on 2^20 and 2^22 BN254 Fr
+    entries, and ``point_add`` / ``point_double`` on 2^20 lanes: median
+    milliseconds of 20 launches by CUDA events, L2 flushed before each;
+    ``ntt_phase1`` is held against its plain version at 2^12, every tile, first;
+  * ``sums``: ``halves_sums`` and ``fold_and_halves`` on BN254 Fq tables at
+    every size from 2 to 2^24, device microseconds by the profiler as for
+    ``gkr_round`` (a tree whose kernels end in a ``finish_rows`` pass shows it
+    apart), held against the plain versions up to 2^16; then at 2^20 and 2^24
+    by CUDA events: L2 flushed as ``chip_smoke.py`` flushes it (by writing a
+    256 MB buffer: cold), flushed by reading that buffer (L2 clean), and not
+    flushed (warm), beside ``torch.sum(x.view(2, half, W), dim=1,
+    dtype=torch.int64)`` on the same bytes, a library reduction's rate (signed
+    columns: not the same function).
 
-To compare two trees, copy this script into both and run it from each, one
+The warm 2^20 prove is compared between trees by ``scripts/ab_prove.py``, in
+one process. To compare two trees, copy this script into both and run it from each, one
 after the other in one call on one card, in the order A, B, B, A.
 """
 
 from __future__ import annotations
 
 import os
+import statistics
 import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -37,15 +50,34 @@ from zktpu_torch import _build  # noqa: E402
 from zktpu_torch.curve import point_kernels as pk  # noqa: E402
 from zktpu_torch.field import kernels as fk  # noqa: E402
 from zktpu_torch.field import torch_backend as fb  # noqa: E402
-from zktpu_torch.field.spec import BLS12_381_FQ, BLS12_381_FR, BN254_FR  # noqa: E402
+from zktpu_torch.field.spec import BLS12_381_FQ, BLS12_381_FR, BN254_FQ, BN254_FR  # noqa: E402
 from zktpu_torch.ntt import ntt_kernels as nk  # noqa: E402
 
 RUNS = 20
+PARTS = ("gkr", "ntt", "sums")
+
+
+def device_us(fn, kernel: str, reps: int) -> tuple[float, float]:
+    """Device microseconds of one call of ``fn`` by the profiler, averaged over
+    ``reps`` calls: (``kernel``'s, ``finish_rows``')."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    own = finish = 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type().name == "CUDA":
+            if kernel + "_kernel" in e.name():
+                own += e.duration_ns()
+            elif "finish_rows_kernel" in e.name():
+                finish += e.duration_ns()
+    return own / reps / 1e3, finish / reps / 1e3
 
 
 def gkr_round_sizes(tag: str) -> None:
-    from torch.profiler import ProfilerActivity, profile
-
     ctx = fb.get_ctx(BLS12_381_FR)
     rng = np.random.default_rng(0)
     line = []
@@ -55,22 +87,70 @@ def gkr_round_sizes(tag: str) -> None:
         if k <= 16:
             cs.check(torch.equal(got, fk.gkr_round_plain(ctx, stack)),
                      f"gkr_round differs from its plain version at 2^{k}")
-        torch.cuda.synchronize()
-        reps = 50 if k <= 16 else 10
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fk.gkr_round(ctx, stack)
-            torch.cuda.synchronize()
-        kernel = finish = 0
-        for e in prof.profiler.kineto_results.events():
-            if e.device_type().name == "CUDA":
-                if "gkr_round_kernel" in e.name():
-                    kernel += e.duration_ns()
-                elif "finish_rows_kernel" in e.name():
-                    finish += e.duration_ns()
-        line.append(f"2^{k} {kernel / reps / 1e3:.2f}+{finish / reps / 1e3:.2f}")
+        kernel, finish = device_us(lambda: fk.gkr_round(ctx, stack), "gkr_round",
+                                   50 if k <= 16 else 10)
+        line.append(f"2^{k} {kernel:.2f}+{finish:.2f}")
         del stack
     print(f"{tag} gkr_round us (kernel+finish_rows): " + ", ".join(line), flush=True)
+
+
+def sums_sizes(tag: str) -> None:
+    ctx = fb.get_ctx(BN254_FQ)
+    rng = np.random.default_rng(4)
+    r = cs.random_table(ctx, rng)
+    lines = {"halves_sums": [], "fold_and_halves": []}
+    for k in range(1, 25):
+        table = cs.random_table(ctx, rng, 1 << k)
+        calls = {"halves_sums": (lambda: fk.halves_sums(ctx, table),
+                                 lambda: fk.halves_sums_plain(ctx, table)),
+                 "fold_and_halves": (lambda: fk.fold_and_halves(ctx, table, r),
+                                     lambda: fk.fold_and_halves_plain(ctx, table, r))}
+        for name, (kernel, plain) in calls.items():
+            if k <= 16:
+                got, want = kernel(), plain()
+                same = (torch.equal(got, want) if name == "halves_sums"
+                        else all(torch.equal(g, v) for g, v in zip(got, want)))
+                cs.check(same, f"{name} differs from its plain version at 2^{k}")
+            own, finish = device_us(kernel, name, 50 if k <= 16 else 10)
+            lines[name].append(f"2^{k} {own:.2f}+{finish:.2f}")
+        del table
+    for name, line in lines.items():
+        print(f"{tag} {name} us (kernel+finish_rows): " + ", ".join(line), flush=True)
+
+    flush = torch.empty(256 << 20, dtype=torch.int8, device="cuda")
+    out = []
+    for k in (20, 24):
+        table = cs.random_table(ctx, rng, 1 << k)
+        half = table.shape[0] // 2
+        for name, fn in (("halves_sums", lambda: fk.halves_sums(ctx, table)),
+                         ("fold_and_halves", lambda: fk.fold_and_halves(ctx, table, r)),
+                         ("torch.sum", lambda: torch.sum(table.view(2, half, ctx.num_words),
+                                                         dim=1, dtype=torch.int64))):
+            cold = cs.time_events(fn, RUNS, flush)
+            clean = time_read_flush(fn, RUNS, flush)
+            warm = cs.time_events(fn, RUNS)
+            out.append(f"{name} 2^{k} {cold:.4f} / {clean:.4f} / {warm:.4f}")
+        del table
+    print(f"{tag} ms cold / cold, L2 flushed by a read / warm: " + "; ".join(out), flush=True)
+
+
+def time_read_flush(fn, runs: int, flush) -> float:
+    """As ``chip_smoke.time_events`` with L2 flushed, but flushed by reading
+    ``flush``, not writing it: L2 then holds clean lines, and the timed call
+    has no dirty lines to write back as it evicts them."""
+    fn()
+    torch.cuda.synchronize()
+    pairs = []
+    for _ in range(runs):
+        flush.max()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
 def ntt_and_points(tag: str) -> None:
@@ -100,8 +180,10 @@ def ntt_and_points(tag: str) -> None:
 
 
 def main() -> int:
-    if not torch.cuda.is_available() or len(sys.argv) != 2:
-        print("usage, on a machine with a CUDA device: time_kernels.py TAG", file=sys.stderr)
+    parts = sys.argv[2:] or list(PARTS)
+    if not torch.cuda.is_available() or len(sys.argv) < 2 or not set(parts) <= set(PARTS):
+        print("usage, on a machine with a CUDA device: time_kernels.py TAG [PART ...], "
+              f"PART in {PARTS}", file=sys.stderr)
         return 1
     tag = sys.argv[1]
     _build.build_cuda_libraries(["sumcheck_kernels", "point_kernels", "ntt_kernels"])
@@ -109,11 +191,15 @@ def main() -> int:
     nk.library()
     pk.library()
     usage = []
-    for stem, needle in (("ntt_kernels", "ntt_phase1_kernel"), ("sumcheck_kernels", "gkr_round_kernel")):
+    for stem, needle in (("ntt_kernels", "ntt_phase1_kernel"),
+                         ("sumcheck_kernels", "gkr_round_kernel"),
+                         ("sumcheck_kernels", "halves_sums_kernel"),
+                         ("sumcheck_kernels", "fold_and_halves_kernel")):
         usage += cs.resource_usage(_build.build_log[stem], needle)
     print(f"{tag} " + " | ".join(usage), flush=True)
-    gkr_round_sizes(tag)
-    ntt_and_points(tag)
+    for part, fn in (("gkr", gkr_round_sizes), ("ntt", ntt_and_points), ("sums", sums_sizes)):
+        if part in parts:
+            fn(tag)
     print(cs.gpu_line(), flush=True)
     return 0
 

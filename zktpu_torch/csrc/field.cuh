@@ -1,8 +1,9 @@
 // Prime-field arithmetic on W little-endian 32-bit words held in registers.
 //
-// Where five of the package's CUDA kernels get their arithmetic from (mont_mul,
-// fold, halves_sums, fold_and_halves, ntt_stage; the two G1 point kernels use
-// fq381.cuh, gkr_round and ntt_phase1 mont.cuh): the counterpart of
+// Where three of the package's CUDA kernels get their arithmetic from (mont_mul,
+// fold, ntt_stage; the two G1 point kernels use fq381.cuh, gkr_round,
+// fold_and_halves and ntt_phase1 mont.cuh, and halves_sums does no modular
+// arithmetic): the counterpart of
 // zktpu/field/limb_major.py (add, sub, mont_mul at :102-143),
 // which plays the same part for the Pallas kernels. The TPU version works on
 // 16-bit digits in uint32 lanes with delayed carries, because that chip has no

@@ -1,6 +1,7 @@
 // A Montgomery core on PTX carry chains with the modulus given at run time, and
-// the per-lane work of the two kernels built on it: gkr_round
-// (sumcheck_kernels.cu) and ntt_phase1 (ntt_kernels.cu).
+// the per-lane work of two of the three kernels built on it: gkr_round
+// (sumcheck_kernels.cu) and ntt_phase1 (ntt_kernels.cu). The third,
+// fold_and_halves, has its per-thread work in sums.cuh.
 //
 // Fields: the package's three 8-word fields (BN254 Fq, BN254 Fr, BLS12-381 Fr),
 // and BLS12-381 Fq at W = 12, which gkr_round also takes. One kernel serves
@@ -212,6 +213,18 @@ MT_FN void mul(uint32_t (&out)[W], const uint32_t (&a)[W], const uint32_t (&b)[W
   uint32_t r[W];
   merge<W>(r, od, ev);
   cond_sub<W>(out, r, M);
+}
+
+// out = a + r (b - a) mod p, the fold of one multilinear variable at r; a, b
+// and r canonical. r is mul's first operand, the one that must be below p.
+// out may alias a or b.
+template <int W>
+MT_FN void lerp(uint32_t (&out)[W], const uint32_t (&a)[W], const uint32_t (&b)[W],
+                const uint32_t (&r)[W], const Modulus<W>& M) {
+  uint32_t d[W];
+  sub<W>(d, b, a, M);
+  mul<W>(d, r, d, M);
+  add<W>(out, a, d, M);
 }
 
 // acc (W + 1 words, an exact integer) += x

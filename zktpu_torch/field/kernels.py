@@ -41,9 +41,18 @@ from .torch_backend import FieldCtx
 
 #: extra high words on lazy sum rows (headroom for tables below 2^31 entries)
 EXTRA_WORDS = 1
-#: cap on the block count per output row of the summing kernels (and the rows of
-#: their per-block partials): enough blocks to fill the card several times over
+#: cap on the block count of gkr_round (and the rows of its per-block
+#: partials): enough blocks to fill the card several times over
 MAX_SUM_BLOCKS = 1024
+#: the summing kernels, by the index their C functions take; the first two
+#: finish their rows in one launch
+_SUMMING = {"halves_sums": 0, "fold_and_halves": 1, "gkr_round": 2}
+_ONE_LAUNCH = ("halves_sums", "fold_and_halves")
+#: tables of at most this many entries go to one block of a one-launch summing
+#: kernel, which finishes both rows itself: no ticket, no fence. Up to there a
+#: block's extra steps cost less than the ticket's fences and atomics (a step
+#: of halves_sums is four loads a thread, of fold_and_halves a carry chain).
+ONE_BLOCK_MAX = {"halves_sums": 1 << 11, "fold_and_halves": 1 << 10}
 
 KERNEL_NAMES = ("mont_mul", "fold", "halves_sums", "fold_and_halves", "gkr_round")
 #: kernel name -> launches made by its wrapper since the last reset
@@ -132,6 +141,9 @@ _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
 _SIGNATURES = {
     "zk_block_threads": [],
+    "zk_sum_threads": [ctypes.c_int, ctypes.c_int],
+    "zk_resident_blocks": [ctypes.c_int, ctypes.c_int],
+    "zk_sum_scratch_words": [ctypes.c_int, ctypes.c_int, ctypes.c_int],
     "zk_mont_mul": [_P, _P, _P, _LL, _LL, ctypes.c_int, _P, ctypes.c_uint32, _P],
     "zk_fold": [_P, _P, _P, _LL, _LL, ctypes.c_int, _P, ctypes.c_uint32, _P],
     "zk_halves_sums": [_P, _P, _P, _LL, ctypes.c_int, ctypes.c_int, _P],
@@ -193,20 +205,75 @@ def _sum_blocks(lib, per_row: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def _sm_count(device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
+def _resident_blocks(lib, device, name: str, w: int) -> int:
+    """Blocks of a summing kernel that the card holds at once (by its
+    registers and shared memory)."""
+    with torch.cuda.device(device):
+        n = lib.zk_resident_blocks(_SUMMING[name], w)
+    if n <= 0:
+        raise RuntimeError(f"occupancy query of {name} failed ({n})")
+    return n
 
 
-def _gkr_round_blocks(lib, device, half: int) -> int:
+def _gkr_round_blocks(lib, device, w: int, half: int) -> int:
     """A thread an (index, t) pair where all 3 half pairs fit in one wave of
-    resident threads (two blocks an SM: 128 registers a thread at W = 8), that
-    is, on small tables, where a launch's latency is its time; else a thread an
-    index. The kernel tells the two apart by the grid's size."""
+    resident threads (two blocks an SM at W = 8), that is, on small tables,
+    where a launch's latency is its time; else a thread an index. The kernel
+    tells the two apart by the grid's size."""
     threads = lib.zk_block_threads()
     pairs = 3 * half
-    if pairs <= _sm_count(device) * 2 * threads:
+    if pairs <= _resident_blocks(lib, device, "gkr_round", w) * threads:
         return -(-pairs // threads)
     return _sum_blocks(lib, half)
+
+
+@functools.lru_cache(maxsize=None)
+def _one_launch_blocks(lib, device, name: str, w: int, size: int) -> int:
+    """Blocks a row of ``halves_sums`` or ``fold_and_halves`` on a (size, W)
+    table: 0 (one block takes both rows) up to ``ONE_BLOCK_MAX`` entries, else
+    four 16-byte vectors a thread (halves_sums) or an output a thread, at most
+    one wave of resident blocks for the two rows."""
+    if size <= ONE_BLOCK_MAX[name]:
+        return 0
+    threads = lib.zk_sum_threads(_SUMMING[name], w)
+    if name == "halves_sums":
+        entries, per_block = size // 2, threads * 4 * 4 // w
+    else:
+        entries, per_block = size // 4, threads
+    cap = _resident_blocks(lib, device, name, w) // 2
+    return max(1, min(-(-entries // per_block), cap))
+
+
+#: (device, stream) -> the uint64 scratch of the one-launch summing kernels on
+#: that stream: the two tickets that elect each row's last block, zeroed here
+#: once (the last block resets its row's, so no call pays a launch for it), then
+#: room for the partials of one wave of blocks of either kernel at either width
+_scratch: dict[tuple, torch.Tensor] = {}
+
+
+def _sum_scratch(lib, device, stream: int) -> torch.Tensor:
+    buf = _scratch.get((device, stream))
+    if buf is None:
+        words = max(lib.zk_sum_scratch_words(_SUMMING[name], w,
+                                             _resident_blocks(lib, device, name, w) // 2)
+                    for name in _ONE_LAUNCH for w in (8, 12))
+        buf = torch.zeros(words, dtype=torch.int64, device=device)
+        _scratch[(device, stream)] = buf
+    return buf
+
+
+def _one_launch_args(lib, ctx: FieldCtx, name: str, size: int, blocks):
+    """(stream, scratch, blocks a row) of one launch of a one-launch summing
+    kernel, inside ``torch.cuda.device(ctx.device)``; ``blocks`` None is the
+    default grid, anything else (0: one block) is checked against the scratch."""
+    w = ctx.num_words
+    stream = _stream(ctx)
+    scratch = _sum_scratch(lib, ctx.device, stream)
+    if blocks is None:
+        return stream, scratch, _one_launch_blocks(lib, ctx.device, name, w, size)
+    if blocks < 0 or lib.zk_sum_scratch_words(_SUMMING[name], w, blocks) > scratch.numel():
+        raise ValueError(f"{name}: {blocks} blocks a row do not fit the scratch")
+    return stream, scratch, blocks
 
 
 # ----------------------------------------------------------------------
@@ -283,13 +350,19 @@ def halves_sums(ctx: FieldCtx, table):
     _check_size("halves_sums", size)
     if table.device.type == "cpu":
         return halves_sums_plain(ctx, table)
+    return _launch_halves_sums(ctx, table)
+
+
+def _launch_halves_sums(ctx: FieldCtx, table, blocks: int | None = None):
+    """One launch of the kernel, ``blocks`` blocks a row, 0 for one block that
+    takes both rows (default: by the table's size and the card's residency)."""
     lib = library()
-    nb = _sum_blocks(lib, size // 2)
-    partials = torch.empty((2, nb, w), dtype=torch.int64, device=table.device)
+    size, w = table.shape
     rows = torch.empty((2, w + EXTRA_WORDS), dtype=torch.int32, device=table.device)
     with torch.cuda.device(ctx.device):
+        stream, scratch, blocks = _one_launch_args(lib, ctx, "halves_sums", size, blocks)
         err = lib.zk_halves_sums(
-            table.data_ptr(), partials.data_ptr(), rows.data_ptr(), size, nb, w, _stream(ctx)
+            table.data_ptr(), scratch.data_ptr(), rows.data_ptr(), size, blocks, w, stream
         )
     _raise_on(err, "halves_sums")
     launches["halves_sums"] += 1
@@ -308,15 +381,21 @@ def fold_and_halves(ctx: FieldCtx, table, r):
     _check_size("fold_and_halves", size)
     if table.device.type == "cpu":
         return fold_and_halves_plain(ctx, table, r)
+    return _launch_fold_and_halves(ctx, table, r)
+
+
+def _launch_fold_and_halves(ctx: FieldCtx, table, r, blocks: int | None = None):
+    """One launch of the kernel, ``blocks`` blocks a row, 0 for one block that
+    takes both rows (default: by the table's size and the card's residency)."""
     lib = library()
-    nb = _sum_blocks(lib, max(1, size // 4))
+    size, w = table.shape
     out = torch.empty((size // 2, w), dtype=torch.int32, device=table.device)
-    partials = torch.empty((2, nb, w), dtype=torch.int64, device=table.device)
     rows = torch.empty((2, w + EXTRA_WORDS), dtype=torch.int32, device=table.device)
     with torch.cuda.device(ctx.device):
+        stream, scratch, blocks = _one_launch_args(lib, ctx, "fold_and_halves", size, blocks)
         err = lib.zk_fold_and_halves(
-            table.data_ptr(), r.data_ptr(), out.data_ptr(), partials.data_ptr(),
-            rows.data_ptr(), size, nb, w, ctx.p_words_c, ctx.n0_prime32, _stream(ctx),
+            table.data_ptr(), r.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+            rows.data_ptr(), size, blocks, w, ctx.p_words_c, ctx.n0_prime32, stream,
         )
     _raise_on(err, "fold_and_halves")
     launches["fold_and_halves"] += 1
@@ -336,7 +415,7 @@ def gkr_round(ctx: FieldCtx, tables):
     if tables.device.type == "cpu":
         return gkr_round_plain(ctx, tables)
     lib = library()
-    nb = _gkr_round_blocks(lib, tables.device, size // 2)
+    nb = _gkr_round_blocks(lib, tables.device, w, size // 2)
     # per-block column sums of the three rows' W + 1 words
     partials = torch.empty((3, nb, w + EXTRA_WORDS), dtype=torch.int64, device=tables.device)
     rows = torch.empty((3, w + EXTRA_WORDS), dtype=torch.int32, device=tables.device)
