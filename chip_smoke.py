@@ -75,32 +75,50 @@ started together), then
      build, warm transforms, and ``fft_evaluate`` /
      ``fft_interpolate`` with their host packing apart.
 
-Last, each of the four paths runs once more under ``torch.profiler``, and the
-nine kernels are ranked by their device time on the paths less the bound of the
-lanes they covered there; on each path the device runs one kernel a launch of
-``halves_sums`` and ``fold_and_halves`` and a ``finish_rows`` only after
-``gkr_round`` (none on the sumcheck path), or the script fails.
+Then (14) each of the four paths runs once more under ``torch.profiler``, and
+the nine kernels are ranked by their device time on the paths less the bound of
+the lanes they covered there; on each path the device runs one kernel a launch
+of ``halves_sums`` and ``fold_and_halves`` and a ``finish_rows`` only after
+``gkr_round`` (none on the sumcheck path), or the script fails. Last,
 
-Any failed comparison exits non-zero. The last line of the output is one JSON
-object, ``{"ok": true, "device": {...}}``; the line before it lists the nine
-kernels with their launch counts, errors, times and bounds.
+ 15. proof bytes and the field oracle: ``mont_mul``, ``fold``, ``halves_sums``,
+     ``fold_and_halves``, ``pow_static`` and ``inverse`` on the card against
+     the host C++ oracle (``zktpu_torch.oracle``, no code shared with them) on
+     2^12 random elements with 0, 1 and p - 1, exactly, for BN254 Fq and Fr and
+     BLS12-381 Fr (BLS12-381 Fq: ``mont_mul``); the 2^20 sumcheck proof of
+     phase 3 as bytes (``serialize``), which must hash to a stored digest and
+     round-trip; the whole GKR proof of phase 8, encoded while it existed,
+     decoded onto the card, equal to the proof in memory, re-encoded to the same
+     bytes and accepted by ``gkr.verify``; three blobs with one byte changed (a
+     field element, a G1 flag, a length prefix) raise ``ValueError`` on decode
+     or are refused.
+
+The bounds are ``zktpu_torch/utils/roofline.py``'s, at the peaks it lists for
+the card (it raises on a card it does not list). Any failed comparison exits
+non-zero. The last line of the output is one JSON object, ``{"ok": true,
+"device": {...}}``; the line before it lists the nine kernels with their launch
+counts (the four paths and phase 15), errors, times and bounds.
 """
 
 from __future__ import annotations
 
 import copy
 import json
+import os
 import re
 import statistics
+import struct
 import subprocess
 import sys
 import time
 import warnings
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
-from zktpu_torch import _build
+from zktpu_torch import _build, oracle
+from zktpu_torch import serialize as ser
 from zktpu_torch.curve import bls12_381 as hc
 from zktpu_torch.curve import device as dc
 from zktpu_torch.curve import point_kernels as pk
@@ -123,6 +141,8 @@ from zktpu_torch.poly.multilinear import MultilinearPoly
 from zktpu_torch.poly.univariate import UnivariatePoly
 from zktpu_torch.sumcheck import fused, protocol
 from zktpu_torch.transcript import Transcript
+from zktpu_torch.utils import roofline
+from zktpu_torch.utils.roofline import time_events
 
 NUM_VARS = 20
 #: Keccak-256 of vec_to_bytes(claimed_sum, round polynomials) of the seed-0
@@ -189,12 +209,14 @@ NTT_PHASE1_CHECK_LOGS = tuple(range(0, 23))
 NTT_STAGE_CHECKS = tuple((log_n, tuple(range(1, log_n + 1))) for log_n in (12, 20, 22))
 NTT_CPU_TIE_LOG = 12
 
-# Peaks of one H100 SXM used for the bounds. Memory: 3.35 TB/s (data sheet).
-# Integer: 132 SMs x 64 INT32 lanes x 1.98 GHz boost = 16.7e12 32-bit
-# multiply-adds a second; a 32x32->64 multiply-accumulate is two of them (low
-# and high half).
-HBM_BYTES_PER_S = 3.35e12
-INT32_MAD_PER_S = 132 * 64 * 1.98e9
+#: phase 15: the oracle's fields, and whether every kernel of the phase runs on
+#: each (BLS12-381 Fq, the 12-word field: mont_mul alone); tables of 2^12
+ORACLE_FIELDS = ((BN254_FQ, True), (BN254_FR, True), (BLS12_381_FR, True), (BLS12_381_FQ, False))
+ORACLE_LOG_SIZE = 12
+#: Keccak-256 of ``serialize.encode_sumcheck_proof`` of the seed-0 2^20 BN254 Fq
+#: proof, from the port's CPU path (scripts/proof_digest.py --blob); a test holds
+#: the port's blob to the JAX package's, byte for byte, at 16 entries
+SUMCHECK_BLOB_DIGEST_2E20 = "a4c4feb633415853b4457da88534ad8999f607ea1bea082a49f04ffa52588181"
 
 #: the times of gkr_round, halves_sums and fold_and_halves (at 2^20 and 2^24
 #: entries) and ntt_phase1 (at 2^20 and 2^22) before their redesign (ms, CUDA
@@ -690,44 +712,6 @@ def phase_gkr_ties(ctx, circuit, inputs, proved) -> None:
 # phase 7: times
 # ----------------------------------------------------------------------
 
-def time_events(fn, runs: int, flush=None) -> float:
-    """Median milliseconds of ``fn`` over ``runs`` launches, by CUDA events;
-    ``flush`` (a tensor larger than the L2 cache) is rewritten before each."""
-    fn()
-    torch.cuda.synchronize()
-    pairs = []
-    for _ in range(runs):
-        if flush is not None:
-            flush.zero_()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        pairs.append((start, end))
-    torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in pairs)
-
-
-def kernel_work(name: str, size: int, w: int):
-    """(bytes moved, 32-bit multiply-adds) of one call at ``size``:
-    each input read once, each output written once."""
-    elem = 4 * w
-    mul = 2 * (2 * w * w + w)  # one Montgomery product, low and high halves
-    if name == "mont_mul":  # table x one element
-        return 2 * size * elem + elem, size * mul
-    if name == "fold":
-        return size * elem + size // 2 * elem + elem, size // 2 * mul
-    rows = 2 * 4 * (w + fk.EXTRA_WORDS)
-    if name == "halves_sums":  # a 64-bit column add is two 32-bit adds
-        return size * elem + rows, size * 2 * w
-    if name == "fold_and_halves":
-        return size * elem + size // 2 * elem + elem + rows, size // 2 * (mul + 2 * w)
-    if name == "gkr_round":  # a (2, 2, size, W) stack: six products and three terms an index
-        return 4 * size * elem + 3 * rows // 2, size // 2 * (6 * mul + 3 * 2 * w)
-    raise ValueError(name)
-
-
 def time_kernels_at(ctx, rng, flush, r, size: int) -> dict[str, dict]:
     table = random_table(ctx, rng, size)
     gctx = fb.get_ctx(BLS12_381_FR)  # the field of the path that launches gkr_round
@@ -747,14 +731,11 @@ def time_kernels_at(ctx, rng, flush, r, size: int) -> dict[str, dict]:
         cold = time_events(kernel, TIMED_RUNS, flush)
         warm = time_events(kernel, TIMED_RUNS)
         plain_ms = time_events(plain, 3 if size > (1 << 20) else 5, flush)
-        nbytes, mads = kernel_work(name, size, ctx.num_words)
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = mads / INT32_MAD_PER_S * 1e3
+        nbytes, mads = roofline.FIELD_KERNEL_COSTS[name](size, ctx.num_words)
+        b = roofline.bound(nbytes, mads)
         rec = {
             "ms": cold, "warm_ms": warm, "plain_ms": plain_ms, "bytes": nbytes,
-            "gb_per_s": nbytes / (cold * 1e-3) / 1e9,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "gb_per_s": nbytes / (cold * 1e-3) / 1e9, "bound_ms": b.ms, "bound_by": b.by,
         }
         out[name] = rec
         if name == "halves_sums":
@@ -772,7 +753,7 @@ def time_kernels_at(ctx, rng, flush, r, size: int) -> dict[str, dict]:
             + (f"(before the redesign: {before:.4f}) " if before else "")
             + f"({rec['gb_per_s']:.0f} GB/s of {nbytes} bytes), {warm:.4f} ms warm, "
             f"plain {plain_ms:.2f} ms, bound {rec['bound_ms']:.4f} ms by {rec['bound_by']} "
-            f"(bytes {t_bytes:.4f} ms, operations {t_ops:.4f} ms; {rec['bound_ms'] / cold:.1%} "
+            f"(bytes {b.bytes_ms:.4f} ms, operations {b.ops_ms:.4f} ms; {rec['bound_ms'] / cold:.1%} "
             f"of it)")
     return out
 
@@ -1036,23 +1017,6 @@ def phase_point_kernels_vs_plain() -> dict[str, int]:
     return worst
 
 
-def point_kernel_work(name: str, n: int):
-    """(bytes moved, 32-bit multiply-adds) of one call over n lanes of finite,
-    unequal points: an addition reads six and writes three 48-byte coordinates
-    for 11 Montgomery products and 5 squarings (add-2007-bl), a doubling three
-    and three for 2 products and 5 squarings (dbl-2009-l). A squaring forms
-    each cross product once: W(W + 1) operations for the square, W(2W + 1) for
-    the reduction. The modular additions and subtractions are not counted."""
-    w = 12
-    mul = 2 * (2 * w * w + w)
-    sqr = w * (w + 1) + w * (2 * w + 1)
-    if name == "point_add":
-        return 9 * 48 * n, (11 * mul + 5 * sqr) * n
-    if name == "point_double":
-        return 6 * 48 * n, (2 * mul + 5 * sqr) * n
-    raise ValueError(name)
-
-
 def phase_point_kernel_times() -> dict[int, dict[str, dict]]:
     fq = fb.get_ctx(BLS12_381_FQ)
     rng = np.random.default_rng(6)
@@ -1070,17 +1034,14 @@ def phase_point_kernel_times() -> dict[int, dict[str, dict]]:
             cold = time_events(kernel, TIMED_RUNS, flush)
             warm = time_events(kernel, TIMED_RUNS)
             plain_ms = time_events(plain, 3, flush)
-            nbytes, mads = point_kernel_work(name, n)
-            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            t_ops = mads / INT32_MAD_PER_S * 1e3
+            b = roofline.bound(*roofline.POINT_KERNEL_COSTS[name](n))
             rec = {"ms": cold, "warm_ms": warm, "plain_ms": plain_ms,
-                   "bound_ms": max(t_bytes, t_ops),
-                   "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+                   "bound_ms": b.ms, "bound_by": b.by}
             out[n][name] = rec
             say(f"  {name} 2^{n.bit_length() - 1} lanes: {cold:.4f} ms cold L2 (before the redesign: "
                 f"{POINT_MS_BEFORE[name, n]:.4f}), {warm:.4f} ms warm, plain {plain_ms:.2f} ms, "
-                f"bound {rec['bound_ms']:.4f} ms by {rec['bound_by']} (bytes {t_bytes:.4f} ms, "
-                f"operations {t_ops:.4f} ms; {rec['bound_ms'] / cold:.1%} of it)")
+                f"bound {rec['bound_ms']:.4f} ms by {rec['bound_by']} (bytes {b.bytes_ms:.4f} ms, "
+                f"operations {b.ops_ms:.4f} ms; {rec['bound_ms'] / cold:.1%} of it)")
     # the Horner chain's shapes: one thread's latency and a launch
     for n in HORNER_WIDTHS:
         p1, p2 = random_points(rng, n, fq.device), random_points(rng, n, fq.device)
@@ -1097,21 +1058,19 @@ def phase_point_kernel_times() -> dict[int, dict[str, dict]]:
     for pt in (p1, p2):
         pt[2][: 3 * n // 4] = 0
     cold = time_events(lambda: pk.point_add(fq, p1, p2), TIMED_RUNS, flush)
-    nbytes = point_kernel_work("point_add", n)[0]
-    mads = point_kernel_work("point_add", n // 4)[1]  # products only on the finite quarter
+    # products only on the finite quarter
+    b = roofline.bound(roofline.point_add_cost(n)[0], roofline.point_add_cost(n // 4)[1])
     say(f"  point_add 2^20 lanes, 75 % infinite in one run: {cold:.4f} ms cold L2; bound "
-        f"{max(nbytes / HBM_BYTES_PER_S, mads / INT32_MAD_PER_S) * 1e3:.4f} ms (bytes of every "
-        f"lane {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms, operations of the finite quarter "
-        f"{mads / INT32_MAD_PER_S * 1e3:.4f} ms)")
+        f"{b.ms:.4f} ms (bytes of every lane {b.bytes_ms:.4f} ms, operations of the finite "
+        f"quarter {b.ops_ms:.4f} ms)")
     # mont_mul at W = 12, the word count of this path's field
     for n in POINT_TIME_WIDTHS:
         table = random_table(fq, rng, n)
         cold = time_events(lambda: fk.mont_mul(fq, table, fq.r2), TIMED_RUNS, flush)
         plain_ms = time_events(lambda: fk.mont_mul_plain(fq, table, fq.r2), 3, flush)
-        nbytes, mads = kernel_work("mont_mul", n, 12)
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, mads / INT32_MAD_PER_S * 1e3
+        b = roofline.bound(*roofline.mont_mul_cost(n, 12))
         say(f"  mont_mul W=12 2^{n.bit_length() - 1}: {cold:.4f} ms cold L2, plain {plain_ms:.2f} ms, "
-            f"bound {max(t_bytes, t_ops):.4f} ms (bytes {t_bytes:.4f} ms, operations {t_ops:.4f} ms)")
+            f"bound {b.ms:.4f} ms (bytes {b.bytes_ms:.4f} ms, operations {b.ops_ms:.4f} ms)")
     return out
 
 
@@ -1508,28 +1467,10 @@ def phase_ntt_ties(ctx, results, poly, evals, interp) -> None:
     say(f"  2^{NTT_CPU_TIE_LOG} ntt and inverse on the card == on the CPU")
 
 
-def ntt_kernel_work(name: str, log_n: int, stage: int = 0):
-    """(bytes moved, 32-bit multiply-adds) of one call on a 2^log_n table: the
-    table read once and written once, the distinct twiddles read once (T/2 for
-    phase 1 at tile T, m/2 for the stage of span m), one Montgomery product a
-    butterfly whose twiddle is not w^0 = 1 (the stage of span m has n/m
-    butterflies by 1, which need none); modular adds and subtractions not
-    counted."""
-    n, elem, mul = 1 << log_n, 32, 2 * (2 * 8 * 8 + 8)
-    if name == "ntt_phase1":
-        log_tile = min(nk.LOG_TILE, log_n)
-        products = sum(n // 2 - (n >> s) for s in range(1, log_tile + 1))
-        return 2 * n * elem + (1 << log_tile) // 2 * elem, products * mul
-    if name == "ntt_stage":
-        return 2 * n * elem + (1 << (stage - 1)) * elem, (n // 2 - (n >> stage)) * mul
-    raise ValueError(name)
-
-
 def ntt_record(cold, warm, plain_ms, nbytes, mads) -> dict:
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, mads / INT32_MAD_PER_S * 1e3
-    return {"ms": cold, "warm_ms": warm, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes_ms": t_bytes, "ops_ms": t_ops}
+    b = roofline.bound(nbytes, mads)
+    return {"ms": cold, "warm_ms": warm, "plain_ms": plain_ms, "bound_ms": b.ms,
+            "bound_by": b.by, "bytes_ms": b.bytes_ms, "ops_ms": b.ops_ms}
 
 
 def phase_ntt_times(ctx, results) -> dict[int, dict[str, dict]]:
@@ -1547,7 +1488,7 @@ def phase_ntt_times(ctx, results) -> dict[int, dict[str, dict]]:
             time_events(lambda: nk.ntt_phase1(ctx, x, tw, log_tile), TIMED_RUNS, flush),
             time_events(lambda: nk.ntt_phase1(ctx, x, tw, log_tile), TIMED_RUNS),
             time_events(lambda: nk.ntt_phase1_plain(ctx, x, tw, log_tile), 3, flush),
-            *ntt_kernel_work("ntt_phase1", log_n))
+            *roofline.ntt_phase1_cost(log_n))
         recs["ntt_phase1"] = rec
         say(f"  ntt_phase1 2^{log_n}: {rec['ms']:.4f} ms cold L2 (before the redesign: "
             f"{KERNEL_MS_BEFORE['ntt_phase1', 1 << log_n]:.4f}), {rec['warm_ms']:.4f} ms warm, "
@@ -1560,7 +1501,7 @@ def phase_ntt_times(ctx, results) -> dict[int, dict[str, dict]]:
                 time_events(lambda: nk.ntt_stage(ctx, x, tw, stage), TIMED_RUNS, flush),
                 time_events(lambda: nk.ntt_stage(ctx, x, tw, stage), TIMED_RUNS),
                 time_events(lambda: nk.ntt_stage_plain(ctx, x, tw, stage), 3, flush),
-                *ntt_kernel_work("ntt_stage", log_n, stage))
+                *roofline.ntt_stage_cost(log_n, stage))
             stage_recs.append(rec)
             say(f"  ntt_stage 2^{log_n} stage {stage}: {rec['ms']:.4f} ms cold L2, "
                 f"{rec['warm_ms']:.4f} ms warm, plain {rec['plain_ms']:.2f} ms, "
@@ -1577,7 +1518,7 @@ def phase_ntt_times(ctx, results) -> dict[int, dict[str, dict]]:
                   for inverse in (False, True)}
         t_fwd = time_events(lambda: tn.ntt(ctx, x), TIMED_RUNS, flush)
         t_inv = time_events(lambda: tn.ntt(ctx, x, inverse=True), TIMED_RUNS, flush)
-        bound = recs["ntt_phase1"]["bound_ms"] + sum(r["bound_ms"] for r in stage_recs)
+        bound = sum(roofline.bound(*cost).ms for cost in roofline.ntt_cost(log_n))
         say(f"  ntt 2^{log_n} warm: forward {t_fwd:.4f} ms, inverse {t_inv:.4f} ms (cold L2; "
             f"bound of the kernels {bound:.4f} ms); twiddle build alone (log_n - 1 = "
             f"{log_n - 1} mont_mul launches and their uploads) {builds[False]:.4f} ms forward, "
@@ -1600,27 +1541,6 @@ def phase_ntt_times(ctx, results) -> dict[int, dict[str, dict]]:
 
 def all_lanes() -> dict[str, int]:
     return {**fk.lanes, **pk.lanes, **nk.lanes}
-
-
-def lanes_bound_ms(name: str, lanes: int, doublings: int) -> float:
-    """The least time of ``lanes`` lanes of a kernel, as in its row's bound:
-    the five field kernels at W = 8 (the KZG path's few 12-word ``mont_mul``
-    lanes priced so too), ``point_add`` on finite lanes, ``point_double``'s
-    bytes by lanes and products by ``doublings`` (lanes x times), the NTT
-    kernels at the path's 2^10 tile with no twiddle reads."""
-    if lanes == 0:
-        return 0.0
-    if name == "point_double":
-        nbytes, mads = point_kernel_work(name, lanes)[0], point_kernel_work(name, doublings)[1]
-    elif name == "point_add":
-        nbytes, mads = point_kernel_work(name, lanes)
-    elif name == "ntt_phase1":
-        nbytes, mads = (v * lanes / (1 << 20) for v in ntt_kernel_work(name, 20))
-    elif name == "ntt_stage":
-        nbytes, mads = 2 * 32 * lanes, lanes // 2 * 2 * (2 * 8 * 8 + 8)
-    else:
-        nbytes, mads = kernel_work(name, lanes, 8)
-    return max(nbytes / HBM_BYTES_PER_S, mads / INT32_MAD_PER_S) * 1e3
 
 
 def profile_path(fn) -> dict:
@@ -1690,7 +1610,7 @@ def print_ranking(kernels: list[dict], profiles: dict[str, dict]) -> list[dict]:
         lanes = sum(p["lanes"][name] for p in profiles.values())
         doublings = sum(p["doublings"] for p in profiles.values()) if name == "point_double" else 0
         device = sum(p["device_ms"][name] for p in profiles.values())
-        bound = lanes_bound_ms(name, lanes, doublings)
+        bound = roofline.lanes_bound_ms(name, lanes, doublings)
         rows.append({"name": name, "launches": launches, "lanes": lanes, "device_ms": device,
                      "bound_ms": bound, "loss_ms": device - bound})
     rows.sort(key=lambda r: -r["loss_ms"])
@@ -1746,6 +1666,154 @@ def phase_profiles(ctx, gctx, rctx, circuit, inputs, taus, ntt_inputs, ntt_poly)
 
 
 # ----------------------------------------------------------------------
+# phase 15: proof bytes and the field oracle
+# ----------------------------------------------------------------------
+
+def oracle_values(spec, rng, n: int) -> list[int]:
+    """n random canonical elements of ``spec``, the first three 0, 1 and p - 1."""
+    p = spec.modulus
+    values = [int.from_bytes(rng.bytes(spec.byte_len), "little") % p for _ in range(n)]
+    values[:3] = [0, 1, p - 1]
+    return values
+
+
+def oracle_mismatches(ctx, rng, log_size: int, every_kernel: bool = True) -> dict[str, int]:
+    """The field layer on ``ctx``'s device against the oracle, which shares no
+    code with it: entries that differ, by kernel or function. Tables of
+    2^log_size random elements with 0, 1 and p - 1 among them, through
+    ``to_mont`` / ``from_mont``; the folds at a random r, 0, 1 and p - 1;
+    ``pow_static`` at a random 64-bit exponent. ``every_kernel`` False:
+    ``mont_mul`` alone. The oracle's products, powers and inverses run on every
+    host core while the card works (its C calls release the interpreter lock)."""
+    p = ctx.spec.modulus
+    n = 1 << log_size
+    a = oracle_values(ctx.spec, rng, n)
+    b = oracle_values(ctx.spec, rng, n)
+    b = b[1:] + b[:1]  # edge against edge, and each edge against a random value
+    exponent = int(rng.integers(0, 1 << 63)) | (1 << 63)
+
+    def to_card(values):
+        return fk.to_mont(ctx, ctx.to_device(ctx.pack(values)))
+
+    def ints(table):
+        return [int(v) for v in ctx.unpack(fk.from_mont(ctx, table)).reshape(-1)]
+
+    def differ(got, want):
+        want = list(want)
+        return sum(x != y for x, y in zip(got, want)) + abs(len(got) - len(want))
+
+    with ThreadPoolExecutor(os.cpu_count()) as pool:
+        want = {"mont_mul": pool.map(lambda x, y: oracle.mul(x, y, p), a, b)}
+        if every_kernel:
+            want["pow_static"] = pool.map(lambda x: oracle.pow_(x, exponent, p), a)
+            want["inverse"] = pool.map(lambda x: oracle.inverse(x, p), a)
+        a_mont = to_card(a)
+        got = {"mont_mul": ints(fk.mont_mul(ctx, a_mont, to_card(b)))}
+        if every_kernel:
+            got["pow_static"] = ints(fb.pow_static(ctx, a_mont, exponent))
+            got["inverse"] = ints(fb.inverse(ctx, a_mont))
+        bad = {name: differ(got[name], want[name]) for name in got}
+    if not every_kernel:
+        return bad
+    half = n // 2
+    bad["halves_sums"] = differ(fk.lazy_rows_to_ints(ctx, fk.halves_sums(ctx, a_mont)),
+                                [oracle.vec_sum(a[:half], p), oracle.vec_sum(a[half:], p)])
+    bad["fold"] = bad["fold_and_halves"] = 0
+    for r in (int.from_bytes(rng.bytes(ctx.spec.byte_len), "little") % p, 0, 1, p - 1):
+        folds = oracle.sumcheck_fold(a, r, p)
+        r_mont = to_card(r)
+        bad["fold"] += differ(ints(fk.fold(ctx, a_mont, r_mont)), folds)
+        folded, rows = fk.fold_and_halves(ctx, a_mont, r_mont)
+        quarter = n // 4
+        bad["fold_and_halves"] += differ(ints(folded), folds) + differ(
+            fk.lazy_rows_to_ints(ctx, rows),
+            [oracle.vec_sum(folds[:quarter], p), oracle.vec_sum(folds[quarter:], p)])
+    return bad
+
+
+def phase_oracle() -> None:
+    rng = np.random.default_rng(11)
+    for spec, every_kernel in ORACLE_FIELDS:
+        ctx = fb.get_ctx(spec)
+        t0 = time.time()
+        bad = oracle_mismatches(ctx, rng, ORACLE_LOG_SIZE, every_kernel)
+        torch.cuda.synchronize()
+        say(f"  {spec.name} (W = {ctx.num_words}), 2^{ORACLE_LOG_SIZE} entries: mismatches "
+            + " ".join(f"{k}={v}" for k, v in bad.items()) + f" ({time.time() - t0:.1f}s)")
+        for name, count in bad.items():
+            check(count == 0, f"{name} differs from the oracle on {spec.name}")
+
+
+def tampered_blobs(blob: bytes, proof) -> dict[str, bytes]:
+    """Three copies of a GKR proof blob, each with one byte changed: the low
+    byte of the first output value, the infinity flag of the commitment, the
+    top byte of the layer count. ``proof`` is the blob's proof (its input
+    proof's length locates the commitment)."""
+    n_out = struct.unpack_from("<I", blob, 1)[0]
+    kzg_at = len(blob) - len(ser.encode_kzg_proof(proof.input_proof))
+    flips = {"field element": (5, 0x01),
+             "G1 flag byte": (kzg_at + ser.G1_BYTES, 0x40),
+             "length prefix": (1 + 4 + n_out * BLS12_381_FR.byte_len + 3, 0x01)}
+    out = {}
+    for name, (at, bit) in flips.items():
+        bad = bytearray(blob)
+        bad[at] ^= bit
+        out[name] = bytes(bad)
+    return out
+
+
+def blob_verdict(blob: bytes, circuit) -> str:
+    """"raised" (``ValueError`` on decode), "refused" or "accepted" by
+    ``gkr.verify``; any other exception propagates."""
+    try:
+        proof = ser.decode_gkr_proof(blob, circuit.ctx.device)
+    except ValueError:
+        return "raised"
+    return "accepted" if gkr.verify(proof, circuit) else "refused"
+
+
+def walk_of(proof, walk) -> gkr.LayersProof:
+    """A whole proof's layer walk at the point pair of ``walk``, with its opened
+    evaluations as the input evaluations."""
+    return gkr.LayersProof(proof, walk.r_b, walk.r_c, tuple(proof.input_proof.opened_evals))
+
+
+def phase_proof_bytes(sum_proof, gkr_blob: bytes, gkr_encode_s: float, kept, circuit, walk) -> None:
+    """The 2^20 sumcheck proof and the whole 2^20-input GKR proof as bytes:
+    digest, round trips, the decoded proof against the one in memory (``kept``,
+    without its device SRS), verify on the card, three tampered blobs."""
+    blob, t_enc = timed(lambda: ser.encode_sumcheck_proof(sum_proof, BN254_FQ))
+    back, t_dec = timed(lambda: ser.decode_sumcheck_proof(blob, BN254_FQ))
+    digest = hk.keccak256(blob).hex()
+    say(f"  2^{NUM_VARS} sumcheck blob: {len(blob)} bytes, encode {t_enc * 1e3:.3f} ms, "
+        f"decode {t_dec * 1e3:.3f} ms; digest {digest}")
+    check(digest == SUMCHECK_BLOB_DIGEST_2E20,
+          f"sumcheck blob digest differs from the stored {SUMCHECK_BLOB_DIGEST_2E20}")
+    check(back == sum_proof and ser.encode_sumcheck_proof(back, BN254_FQ) == blob,
+          "the sumcheck blob does not round-trip")
+
+    decoded, t_dec = timed(lambda: ser.decode_gkr_proof(gkr_blob))
+    say(f"  2^{GKR_NUM_VARS}-input GKR proof blob: {len(gkr_blob)} bytes, encode "
+        f"{gkr_encode_s * 1e3:.1f} ms, decode {t_dec * 1e3:.1f} ms (device None: the card)")
+    check(decoded.output_poly.table.device == circuit.ctx.device,
+          "the decoded output table is not on the card")
+    check(ser.encode_gkr_proof(decoded) == gkr_blob, "the GKR blob does not round-trip")
+    check(same_layers_proof(walk_of(decoded, walk), walk_of(kept, walk))
+          and same_input_proof(decoded.input_proof, kept.input_proof)
+          and decoded.input_proof.kzg_setup.g2_taus == kept.input_proof.kzg_setup.g2_taus,
+          "the decoded GKR proof differs from the proof in memory")
+    ok, t_verify = timed(lambda: gkr.verify(decoded, circuit))
+    check(ok, "verify refused the GKR proof decoded from bytes")
+    say(f"  decoded GKR proof == the proof in memory; re-encodes to the same bytes; "
+        f"gkr.verify accepts it on the card ({t_verify:.1f}s)")
+    t0 = time.time()
+    verdicts = {name: blob_verdict(bad, circuit) for name, bad in tampered_blobs(gkr_blob, kept).items()}
+    say(f"  tampered blobs: {verdicts} ({time.time() - t0:.1f}s)")
+    for name, verdict in verdicts.items():
+        check(verdict in ("raised", "refused"), f"a blob with a changed {name} was accepted")
+
+
+# ----------------------------------------------------------------------
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1782,6 +1850,9 @@ def main() -> int:
                        else lib.zk_sum_threads(fk._SUMMING[name], w))
             say(f"    {name} W = {w}: {threads} threads a block, {n} resident blocks "
                 f"({n / sms:g} an SM)")
+    peaks = roofline.chip_peaks()
+    say(f"    peaks of the bounds (utils/roofline.py): {peaks.bytes_per_s:.4g} bytes/s, "
+        f"{peaks.int32_mad_per_s:.4g} 32-bit multiply-adds/s")
     say(f"    host Keccak backend: {hk.backend()}")
     check(hk.backend() == "c", "the host Keccak fell back to pure Python")
 
@@ -1824,6 +1895,10 @@ def main() -> int:
 
     say("[10] times of the KZG path")
     phase_kzg_times(gctx, circuit, inputs, full_proof, taus)
+    # phase 15 decodes this blob; of the proof it keeps what the host holds
+    gkr_blob, gkr_encode_s = timed(lambda: ser.encode_gkr_proof(full_proof))
+    kept = tampered(full_proof, kzg_setup=KZG(None, full_proof.input_proof.kzg_setup.g2_taus,
+                                              GKR_NUM_VARS))
     del full_proof
     torch.cuda.empty_cache()
     point_times = phase_point_kernel_times()
@@ -1846,6 +1921,16 @@ def main() -> int:
     profiles = phase_profiles(ctx, gctx, rctx, circuit, inputs, taus, ntt_inputs, ntt_poly)
     check_one_launch(profiles)
 
+    say("[15] proof bytes and the field oracle")
+    t0 = time.time()
+    reset_all_launches()
+    phase_oracle()
+    t_oracle = time.time() - t0
+    phase_proof_bytes(proof, gkr_blob, gkr_encode_s, kept, circuit, proved)
+    bytes_launches = all_launches()
+    say(f"  launches in phase 15: {bytes_launches}; the oracle part {t_oracle:.1f}s, "
+        f"the phase {time.time() - t0:.1f}s")
+
     kernels = []
     for name in fk.KERNEL_NAMES + pk.KERNEL_NAMES + nk.KERNEL_NAMES:
         if name in pk.KERNEL_NAMES:
@@ -1857,7 +1942,7 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": REPLACES[name],
             "launches": (launches.get(name, 0) + gkr_launches.get(name, 0) + kzg_launches[name]
-                         + ntt_launches[name]),
+                         + ntt_launches[name] + bytes_launches[name]),
             "max_abs_err": errs[name], "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"], "library_ms": None,
         })

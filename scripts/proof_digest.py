@@ -7,6 +7,7 @@ proves on the card, and prints the digest that ``chip_smoke.py`` stores. The
 card's proof must hash to the same value.
 
     python3 scripts/proof_digest.py [--num-vars 20]      # sumcheck: PROOF_DIGEST_2E20
+    python3 scripts/proof_digest.py --blob [--num-vars 20]  # its bytes: SUMCHECK_BLOB_DIGEST_2E20
     python3 scripts/proof_digest.py --gkr [--num-vars 16]  # GKR layers: GKR_PROOF_DIGEST_2E16
     python3 scripts/proof_digest.py --kzg [--num-vars 5]   # KZG input proof: KZG_PROOF_DIGEST_2E5
 """
@@ -23,10 +24,12 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import torch  # noqa: E402
 
 import chip_smoke  # noqa: E402
+from zktpu_torch import serialize as ser  # noqa: E402
 from zktpu_torch.field import torch_backend as fb  # noqa: E402
 from zktpu_torch.field.spec import BLS12_381_FR, BN254_FQ  # noqa: E402
 from zktpu_torch.gkr import protocol as gkr  # noqa: E402
 from zktpu_torch.gkr.circuit import Circuit  # noqa: E402
+from zktpu_torch.hash import keccak as hk  # noqa: E402
 from zktpu_torch.poly.multilinear import MultilinearPoly  # noqa: E402
 from zktpu_torch.sumcheck import fused  # noqa: E402
 
@@ -38,6 +41,9 @@ def main() -> int:
     ap.add_argument("--kzg", action="store_true",
                     help="the KZG input proof of the whole GKR proof of chip_smoke.gkr_benchmark "
                          "with chip_smoke.gkr_benchmark_taus (default 2^5 inputs, about 2 minutes)")
+    ap.add_argument("--blob", action="store_true",
+                    help="Keccak-256 of the sumcheck proof's bytes (serialize.encode_sumcheck_proof) "
+                         "in place of its values")
     ap.add_argument("--num-vars", type=int)
     ap.add_argument("--threads", type=int, default=2)
     args = ap.parse_args()
@@ -67,7 +73,10 @@ def main() -> int:
     t0 = time.time()
     proof = fused.prove(poly)
     print(f"num_vars={args.num_vars} cpu prove {time.time() - t0:.1f}s", file=sys.stderr)
-    print(chip_smoke.proof_digest(BN254_FQ, proof))
+    if args.blob:
+        print(hk.keccak256(ser.encode_sumcheck_proof(proof, BN254_FQ)).hex())
+    else:
+        print(chip_smoke.proof_digest(BN254_FQ, proof))
     return 0
 
 

@@ -7,6 +7,8 @@ The same gates, inputs and taus go into ``zktpu.gkr.protocol.prove`` and the
 port's ``prove`` (``device="cpu"``: the kernels' plain versions). Tolerance 0:
 the commitment, the 2n quotient points, the opened evaluations and the layer
 proof are equal, and ``verify`` accepts both proofs and refuses tampered ones.
+The port's proof encodes to zktpu's bytes (``serialize``), and the bytes decode
+to a proof that verifies.
 """
 
 import copy
@@ -14,6 +16,7 @@ import copy
 import pytest
 import torch
 
+from zktpu import serialize as jser
 from zktpu.field import jnp_backend as jfb
 from zktpu.field.spec import BLS12_381_FR as JAX_FR
 from zktpu.gkr import circuit as jcircuit
@@ -21,6 +24,7 @@ from zktpu.gkr import protocol as jgkr
 
 import chip_smoke
 from zktpu_torch import convert
+from zktpu_torch import serialize as ser
 from zktpu_torch.curve import bls12_381 as hc
 from zktpu_torch.field import torch_backend as fb
 from zktpu_torch.field.spec import BLS12_381_FR
@@ -55,8 +59,9 @@ class Case:
         self.structure, self.inputs, self.taus = CIRCUITS[name]
         self.circuit = Circuit(ctx, self.structure)
         self.proof = gkr.prove(self.circuit, self.inputs, taus=self.taus)
-        jproof = jgkr.prove(jcircuit.Circuit(jctx, self.structure), self.inputs, taus=self.taus)
-        self.converted = convert.gkr_proof_from_zktpu(ctx, jproof)
+        self.jproof = jgkr.prove(jcircuit.Circuit(jctx, self.structure), self.inputs,
+                                 taus=self.taus)
+        self.converted = convert.gkr_proof_from_zktpu(ctx, self.jproof)
 
 
 _cases = {}
@@ -124,6 +129,23 @@ def test_verify_accepts_and_refuses(case):
     assert not gkr.verify(bad, case.circuit)
     with pytest.raises(ValueError):  # a proof from prove_layers carries no input proof
         gkr.verify(gkr.prove_layers(case.circuit, case.inputs).proof, case.circuit)
+
+
+def test_proof_bytes_equal_zktpus(case):
+    """The port's blob is zktpu's; it decodes (on the CPU) to a proof that
+    re-encodes to the same bytes and verifies; the blobs with one byte changed
+    that ``chip_smoke.py`` phase 15 tries raise ValueError or are refused."""
+    blob = ser.encode_gkr_proof(case.proof)
+    assert blob == jser.encode_gkr_proof(case.jproof)
+    back = ser.decode_gkr_proof(blob, device="cpu")
+    assert back.output_poly.table.device == ctx.device
+    assert back.input_proof.kzg_setup.g1_lagrange_basis is None
+    assert ser.encode_gkr_proof(back) == blob
+    assert gkr.verify(back, case.circuit)
+    verdicts = {name: chip_smoke.blob_verdict(bad, case.circuit)
+                for name, bad in chip_smoke.tampered_blobs(blob, case.proof).items()}
+    assert set(verdicts) == {"field element", "G1 flag byte", "length prefix"}
+    assert all(v in ("raised", "refused") for v in verdicts.values()), verdicts
 
 
 def test_stored_digest_is_the_benchmark_proofs():

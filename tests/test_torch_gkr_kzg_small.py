@@ -10,10 +10,12 @@ import pytest
 import test_torch_gkr_kzg as whole
 from test_torch_gkr_kzg import (  # noqa: F401  (collected here on this file's circuits)
     test_input_proof_is_the_hosts_scalar_multiples,
+    test_proof_bytes_equal_zktpus,
     test_prove_equals_zktpu,
     test_verify_accepts_and_refuses,
 )
 
+from zktpu_torch import serialize as ser
 from zktpu_torch.curve import bls12_381 as hc
 from zktpu_torch.gkr import protocol as gkr
 from zktpu_torch.gkr.circuit import ADD, MUL, Circuit
@@ -35,6 +37,23 @@ def test_single_output_is_padded_in_the_whole_proof():
     case = _cases.get("one_gate") or whole.Case("one_gate")
     assert case.proof.output_poly.to_ints() == [12, 0]
     assert case.proof.input_proof.kzg_setup.num_vars == 1
+
+
+def test_lazy_and_dense_blobs_equal():
+    """tests/test_serialize.py's cross-path check: the dense layer walk gives the
+    lazy proof's bytes. The input proof is a function of the inputs, the taus
+    and the walk's point pair, so the dense walk, at the same point pair and
+    input evaluations, takes the lazy proof's (a second CPU prove of it costs
+    some 25 s of MSMs)."""
+    case = _cases.get("one_gate") or whole.Case("one_gate")
+    lazy = gkr.prove_layers(case.circuit, case.inputs, lazy=True)
+    dense = gkr.prove_layers(case.circuit, case.inputs, lazy=False)
+    assert (dense.r_b, dense.r_c, dense.input_evals) == (lazy.r_b, lazy.r_c, lazy.input_evals)
+    assert tuple(case.proof.input_proof.opened_evals) == dense.input_evals
+    blobs = [ser.encode_gkr_proof(gkr.GkrProof(w.proof.output_poly, w.proof.proof_polynomials,
+                                               w.proof.claimed_evaluations, case.proof.input_proof))
+             for w in (lazy, dense)]
+    assert blobs[0] == blobs[1] == ser.encode_gkr_proof(case.proof)
 
 
 def test_verify_rejects_the_dummy_proof():

@@ -40,7 +40,7 @@ def _port_sources():
         paths += [
             os.path.join(dirpath, f)
             for f in filenames
-            if f.endswith((".py", ".cu", ".cuh", ".c"))
+            if f.endswith((".py", ".cu", ".cuh", ".c", ".cpp"))
         ]
     return sorted(paths)
 
@@ -58,7 +58,8 @@ def test_every_module_imports_with_jax_and_zktpu_blocked():
     assert "zktpu_torch.sumcheck.fused" in modules and "zktpu_torch.field.kernels" in modules
     for name in ("curve.bls12_381", "curve.device", "curve.point_kernels", "msm.fixed_base",
                  "msm.pippenger", "msm.bit_split", "pcs.kzg", "gkr.protocol", "convert",
-                 "ntt.ntt", "ntt.ntt_kernels", "merkle.tree", "shamir", "fibonacci"):
+                 "ntt.ntt", "ntt.ntt_kernels", "merkle.tree", "shamir", "fibonacci",
+                 "serialize", "oracle", "utils.roofline"):
         assert "zktpu_torch." + name in modules
     code = (
         "import sys\n"
@@ -82,6 +83,7 @@ def test_no_source_of_the_port_mentions_jax_or_zktpu_imports():
     assert len(sources) > 25
     assert any(path.endswith("point_kernels.cu") for path in sources)
     assert any(path.endswith("ntt_kernels.cu") for path in sources)
+    assert any(path.endswith("_oracle.cpp") for path in sources)
     for path in sources:
         with open(path, encoding="utf-8") as f:
             text = f.read()

@@ -5,7 +5,8 @@ Two kinds of library, both with a plain C interface and loaded with ``ctypes``:
   * CUDA kernels: one shared library per ``csrc/<stem>.cu``, compiled by ``nvcc``
     for ``sm_90a``. Reached only from a kernel wrapper that was handed a CUDA
     tensor, so importing the package needs neither ``nvcc`` nor a card.
-  * host C (the Keccak sponge), compiled by ``gcc``.
+  * host code: C (the Keccak sponge) compiled by ``gcc``, C++ (the field
+    oracle) by ``g++``.
 
 Outputs go to ``zktpu_torch/_build/`` (ignored by git) under a name that carries
 a hash of the sources, so an edit rebuilds and a stale library is never loaded.
@@ -133,10 +134,11 @@ def cuda_library(stem: str) -> ctypes.CDLL:
     return lib
 
 
-def host_library_path(stem: str, source: str, flags: list[str]) -> str:
-    """Build one host C source with ``gcc`` if its library is missing."""
-    tag = _sources_hash([source], flags)
+def host_library_path(stem: str, source: str, flags: list[str], compiler: str = "gcc") -> str:
+    """Build one host source with ``compiler`` (``gcc`` for C, ``g++`` for C++)
+    if its library is missing."""
+    tag = _sources_hash([source], [compiler] + flags)
     out_path = os.path.join(BUILD_DIR, f"lib{stem}_{tag}.so")
     if not os.path.exists(out_path):
-        _compile(["gcc"] + flags + ["-shared", "-fPIC", source], out_path)
+        _compile([compiler] + flags + ["-shared", "-fPIC", source], out_path)
     return out_path

@@ -1,7 +1,9 @@
 """Plain PyTorch field arithmetic over packed 32-bit-word tensors.
 
 The counterpart of ``zktpu/field/jnp_backend.py``: every function here runs on
-any device and is the reference that the CUDA kernels are held against.
+any device and is the reference that the CUDA kernels are held against, but
+``mont_sqr``, ``pow_static`` and ``inverse``, whose products go through
+``kernels.mont_mul`` (the kernel on a card tensor).
 
 Representation
 --------------
@@ -270,6 +272,47 @@ def to_mont(ctx: FieldCtx, a):
 
 def from_mont(ctx: FieldCtx, a):
     return mont_mul(ctx, a, ctx.one_plain)
+
+
+def mont_sqr(ctx: FieldCtx, a):
+    """a*a*R^{-1} mod p, through ``kernels.mont_mul`` (the kernel on a card
+    tensor)."""
+    # kernels imports this module, so it is imported here, at the call
+    from . import kernels
+
+    return kernels.mont_mul(ctx, a, a)
+
+
+def pow_static(ctx: FieldCtx, a, exponent: int):
+    """a^exponent (Montgomery in and out) for an exponent known on the host,
+    over (..., W) tensors of any leading shape.
+
+    A left-to-right binary ladder: a square every bit below the top one, a
+    product by ``a`` at each 1-bit, each a ``kernels.mont_mul`` call (one
+    launch on the card): (bits - 1) + (ones - 1) launches. The values are the
+    JAX package's ``where`` ladder's; ``exponent == 0`` gives one, 0^e gives 0.
+    """
+    if exponent < 0:
+        raise ValueError("pow_static: the exponent must not be negative")
+    if exponent == 0:
+        return ctx.one_mont.expand(a.shape).clone()
+    from . import kernels  # see mont_sqr
+
+    a = a.contiguous()
+    if exponent == 1:
+        return a.clone()
+    acc = a
+    for bit in bin(exponent)[3:]:
+        acc = kernels.mont_mul(ctx, acc, acc)
+        if bit == "1":
+            acc = kernels.mont_mul(ctx, acc, a)
+    return acc
+
+
+def inverse(ctx: FieldCtx, a):
+    """Fermat inverse a^(p-2) (Montgomery in and out); inverse(0) is 0, as in
+    the JAX package."""
+    return pow_static(ctx, a, ctx.spec.modulus - 2)
 
 
 def lerp(ctx: FieldCtx, a, b, r):
