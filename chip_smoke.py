@@ -93,11 +93,25 @@ of ``halves_sums`` and ``fold_and_halves`` and a ``finish_rows`` only after
      field element, a G1 flag, a length prefix) raise ``ValueError`` on decode
      or are refused.
 
+ 16. the mesh paths (``zktpu_torch.parallel``): the batched NTT kernels (a
+     batch of tables in one launch: 2^10 rows of 2^10, 2^11 of 2^11, 3 of
+     2^12, rows of 1, 2 and 4 entries) against their plain versions, word for
+     word, and their times beside the unbatched table's; then, on a mesh of 4
+     slots of the one card and on the mesh of every card present:
+     ``sumcheck_prove_sharded`` of phase 3's table equals phase 3's proof and
+     digest; ``ntt_sharded`` forward and inverse at 2^20 and 2^22 equals phase
+     12's outputs and inputs; ``msm_pippenger_sharded`` of the 2^20-point
+     commitment equals phase 8's commitment; on the 4-slot mesh
+     ``gkr.prove(mesh=...)`` of phase 8's circuit encodes to phase 8's bytes
+     (phase 15's blob); ``dryrun_multichip`` passes; the launches of each
+     kernel in the phase and each sharded path's warm time beside the single
+     device's.
+
 The bounds are ``zktpu_torch/utils/roofline.py``'s, at the peaks it lists for
 the card (it raises on a card it does not list). Any failed comparison exits
 non-zero. The last line of the output is one JSON object, ``{"ok": true,
 "device": {...}}``; the line before it lists the nine kernels with their launch
-counts (the four paths and phase 15), errors, times and bounds.
+counts (the four paths and phases 15 and 16), errors, times and bounds.
 """
 
 from __future__ import annotations
@@ -136,6 +150,9 @@ from zktpu_torch.msm import fixed_base, generator_comb_mul, msm_bitsplit
 from zktpu_torch.msm import pippenger as pp
 from zktpu_torch.ntt import ntt as tn
 from zktpu_torch.ntt import ntt_kernels as nk
+from zktpu_torch.parallel import context as pctx
+from zktpu_torch.parallel import mesh as pm
+from zktpu_torch.parallel.dryrun import dryrun_multichip
 from zktpu_torch.pcs.kzg import KZG
 from zktpu_torch.poly.multilinear import MultilinearPoly
 from zktpu_torch.poly.univariate import UnivariatePoly
@@ -227,6 +244,15 @@ KERNEL_MS_BEFORE = {("gkr_round", 1 << 20): 0.1417, ("gkr_round", 1 << 24): 1.85
                     ("fold_and_halves", 1 << 20): 0.0370,
                     ("fold_and_halves", 1 << 24): 0.3453,
                     ("ntt_phase1", 1 << 20): 0.2310, ("ntt_phase1", 1 << 22): 0.8480}
+
+#: phase 16: the batched NTT kernels against their plain versions, word for
+#: word, at these (log2 entries of a table, tables in the batch): the row DFTs
+#: of the four-step NTT at 2^20 and 2^22, three rows of 2^12, rows of 1, 2, 4
+NTT_BATCH_CHECKS = ((10, 1 << 10), (11, 1 << 11), (12, 3), (0, 5), (1, 5), (2, 5))
+#: the slots of the one-card mesh of phase 16 (the card repeated), and the
+#: runs of each sharded path's warm time
+MESH_SLOTS = 4
+MESH_TIMED_RUNS = 3
 
 KERNEL_SOURCE = "zktpu_torch/csrc/sumcheck_kernels.cu"
 POINT_KERNEL_SOURCE = "zktpu_torch/csrc/point_kernels.cu"
@@ -1267,14 +1293,15 @@ def timed(fn):
     return out, time.time() - t0
 
 
-def phase_kzg_times(ctx, circuit, inputs, proof, taus) -> None:
+def phase_kzg_times(ctx, circuit, inputs, proof, taus) -> float:
     n = GKR_NUM_VARS
     proves = []
     for _ in range(3):
         again, t = timed(lambda: gkr.prove(circuit, inputs, taus=taus))
         proves.append(t)
     check(same_input_proof(again.input_proof, proof.input_proof), "a warm proof differs from the first")
-    say(f"  warm GKR 2^{n} inputs: prove {statistics.median(proves):.4f}s (median of 3, host clock, "
+    t_prove = statistics.median(proves)
+    say(f"  warm GKR 2^{n} inputs: prove {t_prove:.4f}s (median of 3, host clock, "
         f"synchronised; runs {' '.join(f'{t:.3f}' for t in proves)})")
 
     # the stages, each alone and synchronised
@@ -1316,6 +1343,7 @@ def phase_kzg_times(ctx, circuit, inputs, proof, taus) -> None:
     _, syncs_kzg = count_syncs(lambda: kzg.commit_with_proof_pair(
         (o_b, layers.r_b), (o_c, layers.r_c), input_poly))
     say(f"  synchronising calls: prove {syncs}, of which commit + both proofs {syncs_kzg}")
+    return t_prove
 
 
 # ----------------------------------------------------------------------
@@ -1814,6 +1842,192 @@ def phase_proof_bytes(sum_proof, gkr_blob: bytes, gkr_encode_s: float, kept, cir
 
 
 # ----------------------------------------------------------------------
+# phase 16: the mesh paths
+# ----------------------------------------------------------------------
+
+def phase_batched_ntt_kernels_vs_plain() -> dict[str, int]:
+    """ntt_phase1 (at the full tile) and every later ntt_stage on batches of
+    tables, forward and inverse twiddles, word for word against the plain
+    versions; then each kernel's time on the 2^20- and 2^22-entry batches of
+    the four-step NTT beside its bound and the unbatched table's time."""
+    ctx = fb.get_ctx(BN254_FR)
+    rng = np.random.default_rng(16)
+    p = ctx.spec.modulus
+    edges = (0, 1, p - 1, ctx.spec.R % p)
+    worst = {name: 0 for name in nk.KERNEL_NAMES}
+    for log_n, batch in NTT_BATCH_CHECKS:
+        x = random_table(ctx, rng, batch, 1 << log_n, edges=edges)
+        errs = []
+        for inverse in (False, True):
+            tw = nk.stage_twiddles(ctx, log_n, inverse)
+            log_tile = min(nk.LOG_TILE, log_n)
+            y = nk.ntt_phase1(ctx, x, tw, log_tile)
+            err = max_abs_err(y, nk.ntt_phase1_plain(ctx, x, tw, log_tile))
+            check(err == 0, f"batched ntt_phase1 differs from its plain version "
+                  f"({batch} x 2^{log_n}, inverse={inverse})")
+            errs.append(err)
+            for stage in range(log_tile + 1, log_n + 1):
+                err = max_abs_err(nk.ntt_stage(ctx, y, tw, stage),
+                                  nk.ntt_stage_plain(ctx, y, tw, stage))
+                check(err == 0, f"batched ntt_stage differs from its plain version "
+                      f"({batch} x 2^{log_n}, stage {stage}, inverse={inverse})")
+                worst["ntt_stage"] = max(worst["ntt_stage"], err)
+        worst["ntt_phase1"] = max(worst["ntt_phase1"], *errs)
+        del x
+    torch.cuda.synchronize()
+    say("  batched ntt_phase1 and ntt_stage == their plain versions, forward and inverse, on "
+        + ", ".join(f"{b} x 2^{k}" for k, b in NTT_BATCH_CHECKS))
+
+    flush = torch.empty(256 << 20, dtype=torch.int8, device=ctx.device)
+    for log_n, batch in NTT_BATCH_CHECKS[:2]:
+        x = random_table(ctx, rng, batch, 1 << log_n)
+        flat = x.reshape(batch << log_n, -1)
+        log_flat = flat.shape[0].bit_length() - 1
+        tw = nk.stage_twiddles(ctx, log_n, False)
+        tw_flat = nk.stage_twiddles(ctx, log_flat, False)
+        tile = min(nk.LOG_TILE, log_n)
+        ms = time_events(lambda: nk.ntt_phase1(ctx, x, tw, tile), TIMED_RUNS, flush)
+        alone = time_events(lambda: nk.ntt_phase1(ctx, flat, tw_flat, tile), TIMED_RUNS, flush)
+        b = roofline.bound(*roofline.ntt_phase1_cost(log_n, batch))
+        line = (f"  {batch} x 2^{log_n}: ntt_phase1 {ms:.4f} ms (bound {b.ms:.4f} by {b.by}; one "
+                f"table of 2^{log_flat}: {alone:.4f} ms)")
+        if log_n > nk.LOG_TILE:
+            ms = time_events(lambda: nk.ntt_stage(ctx, x, tw, log_n), TIMED_RUNS, flush)
+            b = roofline.bound(*roofline.ntt_stage_cost(log_n, log_n, batch))
+            line += f", ntt_stage {log_n} {ms:.4f} ms (bound {b.ms:.4f} by {b.by})"
+        say(line + " (CUDA events, median, L2 flushed)")
+        del x, flat
+    return worst
+
+
+def sharded_sumcheck_expected(n: int, d: int) -> dict[str, int]:
+    """halves_sums and fold launches of ``sumcheck_prove_sharded`` at 2^n
+    entries on d slots: the claimed sum's d, then d of each a round until a
+    shard has one row (n - log2 d rounds), then one of each a gathered round."""
+    log_d = d.bit_length() - 1
+    return {"halves_sums": d + d * (n - log_d) + log_d, "fold": d * (n - log_d) + log_d}
+
+
+def sharded_ntt_expected(log_n: int, d: int) -> dict[str, int]:
+    """ntt_phase1 and ntt_stage launches of ``ntt_sharded`` on d slots: one of
+    each a stage past the tile, a slot and a phase (rows of 2^(log_n // 2),
+    then of the rest), each over all the slot's rows in one launch."""
+    log_n1 = log_n // 2
+    stages = max(0, log_n - log_n1 - nk.LOG_TILE) + max(0, log_n1 - nk.LOG_TILE)
+    return {"ntt_phase1": 2 * d, "ntt_stage": d * stages}
+
+
+def delta(before: dict, after: dict, names) -> dict[str, int]:
+    return {name: after[name] - before[name] for name in names}
+
+
+def mesh_sumcheck(mesh, ctx, sum_proof):
+    values = benchmark_values(NUM_VARS)
+    poly = MultilinearPoly.from_ints(ctx, values)
+    before = all_launches()
+    sharded = pm.sumcheck_prove_sharded(poly, mesh)
+    got = delta(before, all_launches(), ("halves_sums", "fold"))
+    want = sharded_sumcheck_expected(NUM_VARS, mesh.size)
+    check(got == want, f"sharded sumcheck launches {got} != {want}")
+    check(sharded.claimed_sum == sum_proof.claimed_sum
+          and sharded.proof_polynomials == sum_proof.proof_polynomials,
+          "the sharded sumcheck proof differs from phase 3's")
+    check(proof_digest(ctx.spec, sharded) == PROOF_DIGEST_2E20, "sharded proof digest differs")
+    say(f"  2^{NUM_VARS} sumcheck_prove_sharded == phase 3's proof, digest {PROOF_DIGEST_2E20[:16]}..; "
+        f"launches {got}")
+    return poly
+
+
+def mesh_ntt(mesh, rctx, ntt_outputs):
+    for log_n, (x, fwd) in ntt_outputs.items():
+        for inverse, src, want in ((False, x, fwd), (True, fwd, x)):
+            before = all_launches()
+            out = pm.ntt_sharded(rctx, mesh, src, inverse)
+            got = delta(before, all_launches(), nk.KERNEL_NAMES)
+            expected = sharded_ntt_expected(log_n, mesh.size)
+            check(got == expected, f"ntt_sharded launches at 2^{log_n}: {got} != {expected}")
+            check(torch.equal(out, want), f"ntt_sharded 2^{log_n} (inverse={inverse}) differs from "
+                  f"phase 12's")
+    say(f"  ntt_sharded forward and inverse at " + " and ".join(f"2^{k}" for k in ntt_outputs)
+        + " == phase 12's ntt outputs and inputs; one ntt_phase1 a slot and a phase")
+
+
+def mesh_commitment(mesh, gctx, inputs, taus, commitment):
+    input_poly = MultilinearPoly.from_ints(gctx, inputs)
+    basis = KZG.for_poly(input_poly, taus).g1_lagrange_basis
+    scalars = fk.from_mont(gctx, input_poly.table)
+    check(pctx.shardable(scalars.shape[0], mesh), "the commitment MSM does not shard")
+    jac = pm.msm_pippenger_sharded(mesh, basis, scalars)
+    check(dc.unpack_points(tuple(t[None] for t in jac))[0] == commitment,
+          "msm_pippenger_sharded of the commitment differs from phase 8's")
+    say(f"  msm_pippenger_sharded of the 2^{GKR_NUM_VARS}-point commitment == phase 8's "
+        f"commitment (window {pp.pick_window_bits((1 << GKR_NUM_VARS) // mesh.size)} a slot)")
+    return basis, scalars
+
+
+def mesh_times(mesh, ctx, rctx, poly, ntt_outputs, basis, scalars) -> None:
+    """Each sharded path's warm time beside the single device's (host clock,
+    synchronised, median of MESH_TIMED_RUNS; the NTT by CUDA events)."""
+    def warm(fn):
+        fn()
+        runs = [timed(fn)[1] for _ in range(MESH_TIMED_RUNS)]
+        return statistics.median(runs)
+
+    t_sharded = warm(lambda: pm.sumcheck_prove_sharded(poly, mesh))
+    t_single = warm(lambda: protocol.prove(poly))
+    t_fused = warm(lambda: fused.prove(poly))
+    say(f"  warm 2^{NUM_VARS} sumcheck: sharded {t_sharded:.4f}s, protocol.prove {t_single:.4f}s, "
+        f"fused.prove {t_fused:.4f}s")
+    t_sharded = warm(lambda: pm.msm_pippenger_sharded(mesh, basis, scalars))
+    t_single = warm(lambda: pp.msm_pippenger(basis, scalars))
+    say(f"  warm 2^{GKR_NUM_VARS}-point commitment MSM: sharded {t_sharded:.4f}s, "
+        f"msm_pippenger {t_single:.4f}s")
+    for log_n, (x, fwd) in ntt_outputs.items():
+        parts = []
+        for inverse, src in ((False, x), (True, fwd)):
+            ms = time_events(lambda: pm.ntt_sharded(rctx, mesh, src, inverse), TIMED_RUNS)
+            single = time_events(lambda: tn.ntt(rctx, src, inverse), TIMED_RUNS)
+            parts.append(f"{'inverse' if inverse else 'forward'} sharded {ms:.4f} ms, ntt {single:.4f} ms")
+        say(f"  warm 2^{log_n} NTT (CUDA events, median of {TIMED_RUNS}): " + "; ".join(parts))
+
+
+def phase_mesh_paths(ctx, gctx, rctx, sum_proof, circuit, inputs, taus, gkr_blob, commitment,
+                     ntt_outputs, t_prove_single):
+    """The mesh paths on the one-card mesh of MESH_SLOTS slots and on the mesh of
+    every card present. Returns the launches of the paths (the timing reruns
+    after them not counted)."""
+    meshes = [("4-slot", pm.make_mesh(devices=[torch.device("cuda", 0)] * MESH_SLOTS)),
+              ("all-cards", pm.make_mesh())]
+    launches = {name: 0 for name in all_launches()}
+    for label, mesh in meshes:
+        say(f"  -- {label} mesh: {mesh}")
+        t0 = time.time()
+        reset_all_launches()
+        poly = mesh_sumcheck(mesh, ctx, sum_proof)
+        mesh_ntt(mesh, rctx, ntt_outputs)
+        basis, scalars = mesh_commitment(mesh, gctx, inputs, taus, commitment)
+        if label == "4-slot":
+            proof, t_mesh = timed(lambda: gkr.prove(circuit, inputs, taus=taus, mesh=mesh))
+            blob = ser.encode_gkr_proof(proof)
+            check(blob == gkr_blob, "gkr.prove(mesh=...) does not encode to phase 8's bytes")
+            say(f"  gkr.prove(mesh=...) of the 2^{GKR_NUM_VARS}-input circuit encodes to phase 8's "
+                f"{len(blob)} bytes: {t_mesh:.3f}s (phase 10's warm prove {t_prove_single:.3f}s)")
+            del proof
+        seconds, t_dry = timed(lambda: dryrun_multichip(mesh))
+        say(f"  dryrun_multichip passes ({t_dry:.1f}s): "
+            + ", ".join(f"{k} {v:.3f}s" for k, v in seconds.items()))
+        got = all_launches()
+        say(f"  launches on the {label} mesh's paths: {got}")
+        for name, v in got.items():
+            launches[name] += v
+        mesh_times(mesh, ctx, rctx, poly, ntt_outputs, basis, scalars)
+        del poly, basis, scalars
+        torch.cuda.empty_cache()
+        say(f"  {label} mesh: {time.time() - t0:.1f}s")
+    return launches
+
+
+# ----------------------------------------------------------------------
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1894,7 +2108,7 @@ def main() -> int:
     phase_kzg_ties(gctx, inputs, full_proof, taus, proved)
 
     say("[10] times of the KZG path")
-    phase_kzg_times(gctx, circuit, inputs, full_proof, taus)
+    t_prove_single = phase_kzg_times(gctx, circuit, inputs, full_proof, taus)
     # phase 15 decodes this blob; of the proof it keeps what the host holds
     gkr_blob, gkr_encode_s = timed(lambda: ser.encode_gkr_proof(full_proof))
     kept = tampered(full_proof, kzg_setup=KZG(None, full_proof.input_proof.kzg_setup.g2_taus,
@@ -1914,6 +2128,7 @@ def main() -> int:
     say("[13] times of the NTT path")
     ntt_times = phase_ntt_times(rctx, ntt_results)
     ntt_inputs = {log_n: r[0] for log_n, r in ntt_results.items()}
+    ntt_outputs = {log_n: (r[0], r[2]) for log_n, r in ntt_results.items()}
     del ntt_results, ntt_evals, ntt_interp
     torch.cuda.empty_cache()
     phase_gkr_launches_a_round(gctx)
@@ -1931,6 +2146,17 @@ def main() -> int:
     say(f"  launches in phase 15: {bytes_launches}; the oracle part {t_oracle:.1f}s, "
         f"the phase {time.time() - t0:.1f}s")
 
+    say("[16] the mesh paths: one-process meshes of card slots")
+    t0 = time.time()
+    errs.update({name: max(errs[name], err)
+                 for name, err in phase_batched_ntt_kernels_vs_plain().items()})
+    mesh_launches = phase_mesh_paths(ctx, gctx, rctx, proof, circuit, inputs, taus, gkr_blob,
+                                     kept.input_proof.commitment, ntt_outputs, t_prove_single)
+    say(f"  launches in phase 16: {mesh_launches}; the phase {time.time() - t0:.1f}s")
+    for name in nk.KERNEL_NAMES + ("mont_mul", "fold", "halves_sums", "gkr_round",
+                                   "point_add", "point_double"):
+        check(mesh_launches[name] > 0, f"the mesh paths launched no {name}")
+
     kernels = []
     for name in fk.KERNEL_NAMES + pk.KERNEL_NAMES + nk.KERNEL_NAMES:
         if name in pk.KERNEL_NAMES:
@@ -1942,7 +2168,7 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": REPLACES[name],
             "launches": (launches.get(name, 0) + gkr_launches.get(name, 0) + kzg_launches[name]
-                         + ntt_launches[name] + bytes_launches[name]),
+                         + ntt_launches[name] + bytes_launches[name] + mesh_launches[name]),
             "max_abs_err": errs[name], "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"], "library_ms": None,
         })

@@ -59,7 +59,8 @@ def test_every_module_imports_with_jax_and_zktpu_blocked():
     for name in ("curve.bls12_381", "curve.device", "curve.point_kernels", "msm.fixed_base",
                  "msm.pippenger", "msm.bit_split", "pcs.kzg", "gkr.protocol", "convert",
                  "ntt.ntt", "ntt.ntt_kernels", "merkle.tree", "shamir", "fibonacci",
-                 "serialize", "oracle", "utils.roofline"):
+                 "serialize", "oracle", "utils.roofline", "parallel.context", "parallel.mesh",
+                 "parallel.dryrun"):
         assert "zktpu_torch." + name in modules
     code = (
         "import sys\n"

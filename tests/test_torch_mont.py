@@ -98,7 +98,7 @@ void mt_gkr_rows(int W, const uint32_t* p, uint32_t n0, const uint32_t* tables, 
 // ntt_phase1's kernel, block after block; within a block each step runs for
 // every thread before the next (a barrier stands between them on the card)
 void mt_ntt_phase1(const uint32_t* p, uint32_t n0, const uint32_t* x, const uint32_t* ctw,
-                   uint32_t* out, int log_n, int log_tile) {
+                   uint32_t* out, long long batch, int log_n, int log_tile) {
   using namespace ntt_tile;
   const Mod M = modulus<8>(p, n0);
   const int log_chunk = log_n < kLogChunk ? log_n : kLogChunk;
@@ -107,9 +107,11 @@ void mt_ntt_phase1(const uint32_t* p, uint32_t n0, const uint32_t* x, const uint
   static TilePlanes tile;
   static TwPlanes tw;
   std::vector<Rows> e(threads);
-  for (long long blk = 0; blk < (1LL << (log_n - log_chunk)); ++blk) {
-    const long long base = blk << log_chunk;
-    for (int t = 0; t < threads; ++t) gather(e[t], x, t, base, log_n, log_chunk);
+  for (long long blk = 0; blk < (batch << (log_n - log_chunk)); ++blk) {
+    // the kernel's grid (chunk, table): x and out moved to the block's table
+    const long long base = (blk & ((1LL << (log_n - log_chunk)) - 1)) << log_chunk;
+    const long long table = (blk >> (log_n - log_chunk)) << log_n;
+    for (int t = 0; t < threads; ++t) gather(e[t], x + table * 8, t, base, log_n, log_chunk);
     for (int t = 0; t < threads; ++t) stage_twiddles(tw, ctw, t, threads, log_chunk);
     int b = 0;
     for (int first = 1; first <= log_tile; first += 3) {
@@ -122,7 +124,7 @@ void mt_ntt_phase1(const uint32_t* p, uint32_t n0, const uint32_t* x, const uint
       const int last = first + 2 < log_tile ? first + 2 : log_tile;
       for (int t = 0; t < threads; ++t) run_stages(e[t], tw, t, b, first, last, log_chunk, M);
     }
-    for (int t = 0; t < threads; ++t) scatter(out, e[t], t, b, base, log_chunk);
+    for (int t = 0; t < threads; ++t) scatter(out + table * 8, e[t], t, b, base, log_chunk);
   }
 }
 
@@ -146,7 +148,7 @@ def lib(tmp_path_factory):
     _P, _I, _U, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_long
     lib.mt_op.argtypes = [_I, _I, _P, _U, _P, _P, _P, _L]
     lib.mt_gkr_rows.argtypes = [_I, _P, _U, _P, ctypes.c_longlong, _I, _P]
-    lib.mt_ntt_phase1.argtypes = [_P, _U, _P, _P, _P, _I, _I]
+    lib.mt_ntt_phase1.argtypes = [_P, _U, _P, _P, _P, ctypes.c_longlong, _I, _I]
     for name in ("mt_row_of", "mt_tile_col", "mt_window"):
         getattr(lib, name).restype = _I
     lib.mt_row_of.argtypes = [_I, _I, _I]
@@ -288,11 +290,35 @@ def test_ntt_phase1_tile_steps_equal_plain(lib, ntt_plain, inverse):
         xw = _words(x)
         out = np.zeros_like(xw)
         lib.mt_ntt_phase1(_ptr(p_words), n0, _ptr(xw), _ptr(ctw) if ctw.size else None,
-                          _ptr(out), log_n, log_tile)
+                          _ptr(out), 1, log_n, log_tile)
         assert np.array_equal(out, _words(ys[log_tile])), (log_n, log_tile)
         # the plain version itself, at this tile
         if log_n in (3, 10):
             assert torch.equal(ys[log_tile], nk.ntt_phase1_plain(FR_CTX, x, tw, log_tile))
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+def test_ntt_phase1_tile_steps_on_a_batch_equal_plain(lib, inverse):
+    """A batch of B tables laid end to end: the blocks of every table in one
+    grid, each gathering its rows in bit-reversed order within its own table,
+    against the batched plain version and the tables one at a time."""
+    p_words, n0, _ = _modulus(BN254_FR)
+    rng = np.random.default_rng(12)
+    p = BN254_FR.modulus
+    for log_n, batch in ((0, 3), (1, 2), (2, 5), (3, 3), (6, 4), (11, 3)):
+        vals = [int.from_bytes(rng.bytes(32), "little") % p for _ in range(batch << log_n)]
+        x = torch.from_numpy(_pack(vals, 8).view(np.int32).copy()).reshape(batch, 1 << log_n, 8)
+        tw = nk.stage_twiddles(FR_CTX, log_n, inverse)
+        ctw = _words(nk.tile_twiddles(tw, log_n))
+        log_tile = min(nk.LOG_TILE, log_n)
+        xw = _words(x)
+        out = np.zeros_like(xw)
+        lib.mt_ntt_phase1(_ptr(p_words), n0, _ptr(xw), _ptr(ctw) if ctw.size else None,
+                          _ptr(out), batch, log_n, log_tile)
+        want = nk.ntt_phase1_plain(FR_CTX, x, tw, log_tile)
+        assert np.array_equal(out, _words(want)), (log_n, batch)
+        for i in range(batch):
+            assert torch.equal(want[i], nk.ntt_phase1_plain(FR_CTX, x[i], tw, log_tile))
 
 
 @pytest.mark.parametrize("log_n", [0, 1, 5, 10, 13])

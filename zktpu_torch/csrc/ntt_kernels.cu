@@ -16,6 +16,15 @@
 // concatenated or tiled up to a tile, which Mosaic's BlockSpecs need; nothing
 // here does.) Every power of two from 1 is taken.
 //
+// Both kernels take a batch: B tables of n rows laid end to end, transformed
+// table by table in the same launch (the four-step NTT of parallel/mesh.py runs
+// its two phases as n1 tables of n2 and n2 of n1). A span m divides n, so a
+// stage's groups never straddle two tables and ntt_stage indexes the batch as
+// one table of B n rows; ntt_phase1 takes the table from blockIdx.y and moves
+// its x and out to it once a block, so its bit-reversed gather runs within a
+// table exactly as on one (an offset inside the gather's addresses cost 5 % at
+// 2^22).
+//
 // A butterfly is u' = u + w v, v' = u - w v with every output reduced, so the
 // words equal the plain PyTorch version's. ntt_phase1 runs on mont.cuh's
 // carry-chain core, ntt_stage on field.cuh's 64-bit C++ products.
@@ -37,6 +46,7 @@ constexpr int W = 8;
 constexpr int kLogMaxTile = ntt_tile::kLogChunk;
 constexpr int kStageThreads = 256;
 constexpr int kMaxLogN = 30;
+constexpr long long kMaxBatch = 65535;
 
 using Mod = zk::Modulus<W>;
 
@@ -52,8 +62,9 @@ __device__ __forceinline__ void butterfly(uint32_t (&u)[W], uint32_t (&v)[W],
 // ---------------------------------------------------------------------------
 // ntt_phase1 -- replaces zktpu/ntt/pallas_ntt.py:_phase1_kernel (:107).
 // One block a chunk of 2^c rows of the bit-reversed table, c = min(10, log_n),
-// 128 threads (2^c / 8, at least one) of eight rows each; stages 1..log_tile
-// (log_tile <= c) run over the chunk, which holds whole tiles.
+// a grid of (2^(log_n - c), B) blocks for a batch of B tables, 128 threads
+// (2^c / 8, at least one) of eight rows each; stages 1..log_tile (log_tile <=
+// c) run over the chunk, which holds whole tiles.
 // Bound on this card: operations. log_tile products an entry pair against 64
 // bytes an entry pair moved; at a 1024-entry tile that is 10 x 272 32-bit
 // multiply-adds for 64 bytes.
@@ -76,6 +87,9 @@ ntt_phase1_kernel(const uint32_t* __restrict__ x, const uint32_t* __restrict__ c
   const int t = threadIdx.x;
   const int lx = log_chunk > 3 ? log_chunk : 3;  // log2 of the rows the threads cover
   const long long base = (long long)blockIdx.x << log_chunk;
+  const long long table = ((long long)blockIdx.y << log_n) * W;  // this block's table
+  x += table;
+  out += table;
   ntt_tile::Rows e;
   ntt_tile::gather(e, x, t, base, log_n, log_chunk);
   ntt_tile::stage_twiddles(tw, ctw, t, blockDim.x, log_chunk);
@@ -100,7 +114,7 @@ ntt_phase1_kernel(const uint32_t* __restrict__ x, const uint32_t* __restrict__ c
 
 // ---------------------------------------------------------------------------
 // ntt_stage -- replaces pallas_ntt.py:_phase2_stage (:154).
-// One stage of span m = 2^stage over the whole table, one thread a butterfly:
+// One stage of span m = 2^stage over the whole batch, one thread a butterfly:
 // thread j of group g = j / (m/2) reads u = x[g m + pos], v = x[g m + pos + m/2]
 // (pos = j mod m/2) and writes u + w v and u - w v to the same rows of `out`,
 // so no reassembly follows (the TPU kernel writes two half tables and
@@ -138,12 +152,13 @@ Mod make_modulus(const uint32_t* p_host, uint32_t n0) {
 
 extern "C" {
 
-// x, out: (2^log_n, 8) words; ctw: the compact twiddles, (2^(c - 1), 8) words,
-// c = min(10, log_n) (unread when log_tile = 0); 0 <= log_tile <= c,
-// log_n <= 30
-int zk_ntt_phase1(const void* x, const void* ctw, void* out, int log_n, int log_tile,
-                  const uint32_t* p, uint32_t n0, void* stream) {
-  if (log_n < 0 || log_n > kMaxLogN || log_tile < 0 || log_tile > kLogMaxTile ||
+// x, out: (batch, 2^log_n, 8) words; ctw: the compact twiddles, (2^(c - 1), 8)
+// words, c = min(10, log_n) (unread when log_tile = 0); 0 <= log_tile <= c,
+// batch 2^log_n <= 2^30, batch <= kMaxBatch (the grid's y extent)
+int zk_ntt_phase1(const void* x, const void* ctw, void* out, long long batch, int log_n,
+                  int log_tile, const uint32_t* p, uint32_t n0, void* stream) {
+  if (log_n < 0 || log_n > kMaxLogN || batch < 1 || batch > kMaxBatch ||
+      batch > (1LL << (kMaxLogN - log_n)) || log_tile < 0 || log_tile > kLogMaxTile ||
       log_tile > log_n)
     return -1;
   static const cudaError_t carveout = cudaFuncSetAttribute(
@@ -151,7 +166,7 @@ int zk_ntt_phase1(const void* x, const void* ctw, void* out, int log_n, int log_
       cudaSharedmemCarveoutMaxShared);  // room for four 48 KB blocks an SM
   if (carveout != cudaSuccess) return (int)carveout;
   const int log_chunk = log_n < kLogMaxTile ? log_n : kLogMaxTile;
-  const unsigned blocks = 1u << (log_n - log_chunk);
+  const dim3 blocks(1u << (log_n - log_chunk), (unsigned)batch);
   const unsigned threads = log_chunk > 3 ? 1u << (log_chunk - 3) : 1u;
   ntt_tile::Mod m;
   for (int j = 0; j < W; ++j) m.p[j] = p[j];
@@ -161,11 +176,14 @@ int zk_ntt_phase1(const void* x, const void* ctw, void* out, int log_n, int log_
   return (int)cudaGetLastError();
 }
 
-// x, out: (2^log_n, 8) words; tw: (2^(log_n - 1), 8) words; 1 <= stage <= log_n <= 30
-int zk_ntt_stage(const void* x, const void* tw, void* out, int log_n, int stage,
-                 const uint32_t* p, uint32_t n0, void* stream) {
-  if (log_n > kMaxLogN || stage < 1 || stage > log_n) return -1;
-  const long long half_n = 1LL << (log_n - 1);
+// x, out: (batch, 2^log_n, 8) words; tw: (2^(log_n - 1), 8) words;
+// 1 <= stage <= log_n, batch 2^log_n <= 2^30
+int zk_ntt_stage(const void* x, const void* tw, void* out, long long batch, int log_n,
+                 int stage, const uint32_t* p, uint32_t n0, void* stream) {
+  if (log_n > kMaxLogN || stage < 1 || stage > log_n || batch < 1 ||
+      batch > (1LL << (kMaxLogN - log_n)))
+    return -1;
+  const long long half_n = batch << (log_n - 1);
   const unsigned blocks = (unsigned)((half_n + kStageThreads - 1) / kStageThreads);
   ntt_stage_kernel<<<blocks, kStageThreads, 0, (cudaStream_t)stream>>>(
       (const uint32_t*)x, (const uint32_t*)tw, (uint32_t*)out, half_n, log_n, stage,

@@ -26,6 +26,11 @@ layers fail is refused without the host's pairings.
 Field: BLS12-381 Fr. Transcript bytes match the reference exactly; all O(2^n)
 steps (circuit evaluation, wiring tables, sumcheck rounds, SRS, MSMs) run on the
 device of the circuit's field context; the verifier's pairings run on the host.
+
+Under an active mesh (``prove(mesh=...)``, or ``parallel.context.use_mesh``
+around ``prove_layers``) each lazy layer sumcheck whose w table the mesh's slots
+divide runs sharded (``parallel.mesh.gkr_sumcheck_lazy_sharded``), and the KZG
+MSMs shard where ``pcs/kzg.py`` says; the proof bytes are the single device's.
 """
 
 from __future__ import annotations
@@ -39,6 +44,8 @@ import torch
 
 from ..field import kernels as fk
 from ..field.spec import BLS12_381_FR
+from ..parallel import context as pctx
+from ..parallel import mesh as pm
 from ..pcs.kzg import KZG, random_taus
 from ..poly.composed import ProductPoly, SumPoly
 from ..poly.multilinear import MultilinearPoly
@@ -215,7 +222,9 @@ def prove_layers(circuit: Circuit, inputs: list[int], lazy: bool | None = None,
     when None. ``fused``: run each lazy phase with the Fiat-Shamir sponge on the
     device (``gkr/fused_lazy.py``); defaults to True whenever the lazy path is
     active. With ``ZKTPU_TRACE=1`` in the environment the stages' wall times go
-    to stderr."""
+    to stderr. Under ``parallel.context.use_mesh`` each lazy layer whose w table
+    the mesh's slots divide runs ``gkr_sumcheck_lazy_sharded``; the proof is the
+    same."""
     return _walk_layers(circuit, inputs, lazy, fused, _stage_marks(circuit.ctx))[0]
 
 
@@ -261,7 +270,10 @@ def _walk_layers(circuit: Circuit, inputs: list[int], lazy, fused, mark):
                 fbc_poly = lazy_mod.lazy_folded_fbc(
                     ctx, layer, w_i, current_rb, current_rc, alpha, beta
                 )
-            if fused:
+            mesh = pctx.current_mesh()
+            if mesh is not None and pctx.shardable(fbc_poly.w_table.shape[0], mesh, min_rows=1):
+                sc_proof = pm.gkr_sumcheck_lazy_sharded(claimed_sum, fbc_poly, transcript, mesh)
+            elif fused:
                 sc_proof = gkr_prove_lazy_fused(claimed_sum, fbc_poly, transcript)
             else:
                 sc_proof = lazy_mod.gkr_prove_lazy(claimed_sum, fbc_poly, transcript)
@@ -300,12 +312,18 @@ def _walk_layers(circuit: Circuit, inputs: list[int], lazy, fused, mark):
 
 
 def prove(circuit: Circuit, inputs: list[int], taus: list[int] | None = None,
-          lazy: bool | None = None, fused: bool | None = None) -> GkrProof:
+          lazy: bool | None = None, fused: bool | None = None, mesh=None) -> GkrProof:
     """Full GKR proof over BLS12-381 Fr (reference :31-126): the layer walk
     (``prove_layers``; ``lazy`` and ``fused`` as there), then the KZG commitment
     to the input layer and its openings at r_b and r_c, on the device of
     ``circuit.ctx``. ``taus``: the trusted setup's secrets, from fresh entropy
-    when None (reference :92-103)."""
+    when None (reference :92-103). ``mesh``: a ``parallel.mesh.Mesh``, active
+    for the whole proof (``use_mesh``): the lazy layer sumchecks run sharded
+    over its slots, and the KZG commitment and quotient MSMs where each slot
+    gets ``MIN_ROWS_PER_DEVICE`` points; the proof is the single device's."""
+    if mesh is not None:
+        with pctx.use_mesh(mesh):
+            return prove(circuit, inputs, taus=taus, lazy=lazy, fused=fused)
     mark = _stage_marks(circuit.ctx)
     layers, input_poly = _walk_layers(circuit, inputs, lazy, fused, mark)
 

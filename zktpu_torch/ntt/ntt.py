@@ -11,6 +11,8 @@ tiles (``ntt_kernels.ntt_phase1``), then one pass a later stage
 (``ntt_kernels.ntt_stage``), over one cached twiddle table
 (``ntt_kernels.stage_twiddles``); the inverse scales by n^-1 through the
 ``mont_mul`` kernel. On a CPU tensor each step is its plain PyTorch version.
+A leading batch axis transforms many tables of one size in the same launches
+(the four-step NTT of ``parallel.mesh.ntt_sharded`` runs its row DFTs so).
 
 What zktpu has and this module has not, because each answers the TPU's compiler
 or layout: the engine choice (``select_engine``, ``ZKTPU_NTT_ENGINE``,
@@ -41,14 +43,11 @@ def _n_inv_mont(ctx: FieldCtx, log_n: int):
     return ctx.to_device(ctx.pack(pow(1 << log_n, -1, spec.modulus) * spec.R % spec.modulus))
 
 
-def ntt(ctx: FieldCtx, table, inverse: bool = False):
-    """NTT of a (2^k, W) Montgomery table -> same shape.
-
-    Forward: values -> evaluations at successive powers of the 2^k-th root
-    (natural order), identical to the reference's recursive ``dft``. Inverse:
-    the transform at the inverse root, scaled by n^-1.
-    """
-    n = table.shape[0]
+def transform(ctx: FieldCtx, table, inverse: bool = False):
+    """The transform of ``ntt`` without the inverse's scaling by n^-1: one
+    ``ntt_phase1`` and one ``ntt_stage`` a later stage, for one table or for
+    every table of a (B, 2^k, W) batch."""
+    n = table.shape[-2] if table.dim() >= 2 else 0
     log_n = n.bit_length() - 1
     if n < 1 or 1 << log_n != n:
         raise ValueError("Length must be a power of 2")
@@ -57,8 +56,20 @@ def ntt(ctx: FieldCtx, table, inverse: bool = False):
     out = nk.ntt_phase1(ctx, table, tw, log_tile)
     for stage in range(log_tile + 1, log_n + 1):
         out = nk.ntt_stage(ctx, out, tw, stage)
+    return out
+
+
+def ntt(ctx: FieldCtx, table, inverse: bool = False):
+    """NTT of a (2^k, W) Montgomery table -> same shape; of a (B, 2^k, W) batch,
+    table by table, in the same launches as one table.
+
+    Forward: values -> evaluations at successive powers of the 2^k-th root
+    (natural order), identical to the reference's recursive ``dft``. Inverse:
+    the transform at the inverse root, scaled by n^-1.
+    """
+    out = transform(ctx, table, inverse)
     if inverse:
-        out = fk.mont_mul(ctx, out, _n_inv_mont(ctx, log_n))
+        out = fk.mont_mul(ctx, out, _n_inv_mont(ctx, table.shape[-2].bit_length() - 1))
     return out
 
 

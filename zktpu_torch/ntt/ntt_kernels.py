@@ -11,6 +11,9 @@ PyTorch version built on ``torch_backend`` that computes the same words:
 
 A transform of 2^log_n entries is ``ntt_phase1`` at ``log_tile = min(10,
 log_n)`` and one ``ntt_stage`` for each later stage (``ntt.ntt`` does that).
+Both take a batch: a (B, 2^log_n, W) stack of tables is transformed table by
+table in one launch of each (the row DFTs of the four-step ``parallel.mesh.
+ntt_sharded``); a (2^log_n, W) table is a batch of one.
 
 Twiddles: ``stage_twiddles`` keeps ONE device table of the n/2 Montgomery powers
 of the n-th root of unity (of its inverse for the inverse transform); the stage
@@ -27,7 +30,7 @@ kernels take every power-of-two size from 1 and BN254 Fr / BLS12-381 Fr tables
 (8 words an element).
 
 ``launches`` counts, per kernel, the wrapper calls that launched it, and
-``lanes`` the table entries those launches covered.
+``lanes`` the table entries those launches covered (every table of a batch).
 """
 
 from __future__ import annotations
@@ -139,10 +142,13 @@ def tile_twiddles(tw, log_n: int):
 # ----------------------------------------------------------------------
 
 def _log_n(x) -> int:
-    return x.shape[0].bit_length() - 1
+    return x.shape[-2].bit_length() - 1
 
 
 def ntt_stage_plain(ctx: FieldCtx, x, tw, stage: int):
+    """Stage ``stage`` of a (2^log_n, W) table or of each table of a
+    (B, 2^log_n, W) batch: a span divides the table, so the batch's groups are
+    those of one table of B 2^log_n rows."""
     log_n = _log_n(x)
     half = 1 << (stage - 1)
     idx = torch.arange(half, device=x.device) << (log_n - stage)
@@ -154,8 +160,9 @@ def ntt_stage_plain(ctx: FieldCtx, x, tw, stage: int):
 
 
 def ntt_phase1_plain(ctx: FieldCtx, x, tw, log_tile: int):
+    """The bit-reversal of each table (of a batch), then stages 1..log_tile."""
     perm = torch.from_numpy(bitrev_perm(_log_n(x))).to(x.device)
-    y = x.index_select(0, perm)
+    y = x.index_select(-2, perm)
     for stage in range(1, log_tile + 1):
         y = ntt_stage_plain(ctx, y, tw, stage)
     return y
@@ -166,9 +173,10 @@ def ntt_phase1_plain(ctx: FieldCtx, x, tw, log_tile: int):
 # ----------------------------------------------------------------------
 
 _P = ctypes.c_void_p
+_LL = ctypes.c_longlong
 _SIGNATURES = {
-    "zk_ntt_phase1": [_P, _P, _P, ctypes.c_int, ctypes.c_int, _P, ctypes.c_uint32, _P],
-    "zk_ntt_stage": [_P, _P, _P, ctypes.c_int, ctypes.c_int, _P, ctypes.c_uint32, _P],
+    "zk_ntt_phase1": [_P, _P, _P, _LL, ctypes.c_int, ctypes.c_int, _P, ctypes.c_uint32, _P],
+    "zk_ntt_stage": [_P, _P, _P, _LL, ctypes.c_int, ctypes.c_int, _P, ctypes.c_uint32, _P],
 }
 
 
@@ -185,19 +193,26 @@ def library() -> ctypes.CDLL:
     return lib
 
 
-def _check(ctx: FieldCtx, name: str, x, tw) -> int:
-    """Raise on anything the kernels do not take; return log2 of the table's
-    size. (Past 2^30 entries the kernels' C entry points refuse the call.)"""
+#: tables a batch may hold (``ntt_phase1``'s grid takes them on its y axis)
+MAX_BATCH = 65535
+
+
+def _check(ctx: FieldCtx, name: str, x, tw) -> tuple[int, int]:
+    """Raise on anything the kernels do not take; return (tables in the batch,
+    log2 of a table's size). (Past 2^30 entries in all the kernels' C entry
+    points refuse the call.)"""
     if ctx.num_words != 8 or not ctx.spec.two_adicity:
         raise ValueError(f"{name}: the NTT takes 8-word fields with a two-adic root, "
                          f"got {ctx.spec.name}")
     fk._check(ctx, f"{name} x", x)
-    n = x.shape[0]
-    if x.dim() != 2 or n < 1 or n & (n - 1) or n > 1 << ctx.spec.two_adicity:
-        raise ValueError(f"{name}: x must be a (2^k, W) table with k <= "
-                         f"{ctx.spec.two_adicity}, got {tuple(x.shape)}")
+    n = x.shape[-2] if x.dim() >= 2 else 0
+    batch = x.shape[0] if x.dim() == 3 else 1
+    if (x.dim() not in (2, 3) or not 1 <= batch <= MAX_BATCH or n < 1 or n & (n - 1)
+            or n > 1 << ctx.spec.two_adicity):
+        raise ValueError(f"{name}: x must be a (2^k, W) table or a (B, 2^k, W) batch with "
+                         f"k <= {ctx.spec.two_adicity}, B <= {MAX_BATCH}, got {tuple(x.shape)}")
     fk._check(ctx, f"{name} tw", tw, (n // 2, ctx.num_words))
-    return _log_n(x)
+    return batch, _log_n(x)
 
 
 # ----------------------------------------------------------------------
@@ -206,8 +221,9 @@ def _check(ctx: FieldCtx, name: str, x, tw) -> int:
 
 def ntt_phase1(ctx: FieldCtx, x, tw, log_tile: int):
     """Stages 1..log_tile of the transform of the (2^log_n, W) table ``x`` taken
-    in bit-reversed order, with the twiddle table ``tw`` of ``stage_twiddles``."""
-    log_n = _check(ctx, "ntt_phase1", x, tw)
+    in bit-reversed order, with the twiddle table ``tw`` of ``stage_twiddles``;
+    of each table of a (B, 2^log_n, W) batch ``x``, in one launch."""
+    batch, log_n = _check(ctx, "ntt_phase1", x, tw)
     if not 0 <= log_tile <= min(LOG_TILE, log_n):
         raise ValueError(f"ntt_phase1: log_tile must lie in [0, min({LOG_TILE}, log_n)]")
     if x.device.type == "cpu":
@@ -217,20 +233,20 @@ def ntt_phase1(ctx: FieldCtx, x, tw, log_tile: int):
     out = torch.empty_like(x)
     with torch.cuda.device(ctx.device):
         err = lib.zk_ntt_phase1(
-            x.data_ptr(), ctw.data_ptr(), out.data_ptr(), log_n, log_tile,
+            x.data_ptr(), ctw.data_ptr(), out.data_ptr(), batch, log_n, log_tile,
             ctx.p_words_c, ctx.n0_prime32, fk._stream(ctx),
         )
     fk._raise_on(err, "ntt_phase1")
     launches["ntt_phase1"] += 1
-    lanes["ntt_phase1"] += 1 << log_n
+    lanes["ntt_phase1"] += batch << log_n
     return out
 
 
 def ntt_stage(ctx: FieldCtx, x, tw, stage: int):
     """Stage ``stage`` (span 2^stage) of the transform over the whole (2^log_n, W)
     table ``x``: u + w v and u - w v written to the rows of u and v of a new
-    table."""
-    log_n = _check(ctx, "ntt_stage", x, tw)
+    table; over each table of a (B, 2^log_n, W) batch ``x``, in one launch."""
+    batch, log_n = _check(ctx, "ntt_stage", x, tw)
     if not 1 <= stage <= log_n:
         raise ValueError("ntt_stage: stage must lie in [1, log_n]")
     if x.device.type == "cpu":
@@ -239,10 +255,10 @@ def ntt_stage(ctx: FieldCtx, x, tw, stage: int):
     out = torch.empty_like(x)
     with torch.cuda.device(ctx.device):
         err = lib.zk_ntt_stage(
-            x.data_ptr(), tw.data_ptr(), out.data_ptr(), log_n, stage,
+            x.data_ptr(), tw.data_ptr(), out.data_ptr(), batch, log_n, stage,
             ctx.p_words_c, ctx.n0_prime32, fk._stream(ctx),
         )
     fk._raise_on(err, "ntt_stage")
     launches["ntt_stage"] += 1
-    lanes["ntt_stage"] += 1 << log_n
+    lanes["ntt_stage"] += batch << log_n
     return out

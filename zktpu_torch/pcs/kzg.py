@@ -29,6 +29,11 @@ tiles every quotient up to 2^(n-1) entries and commits all of them against the
 once-collapsed basis in one dispatch, which its compiler makes the cheap form;
 that is n * 2^(n-1) scalar-point pairs an opening.) The two openings of a GKR
 input proof share each step's basis: one batched MSM of two segments a step.
+
+Under an active mesh (``parallel.context.use_mesh``) the commitment MSM runs
+point-sharded (``parallel.mesh.msm_pippenger_sharded``) and each quotient step
+segment-sharded (``msm_pippenger_multi_sharded``), wherever each slot gets at
+least ``MIN_ROWS_PER_DEVICE`` points: the same group elements.
 """
 
 from __future__ import annotations
@@ -45,6 +50,8 @@ from ..field import torch_backend as fb
 from ..field.spec import BLS12_381_FR
 from ..msm import generator_comb_mul
 from ..msm.pippenger import msm_pippenger, msm_pippenger_multi
+from ..parallel import context as pctx
+from ..parallel import mesh as pm
 from ..poly.multilinear import MultilinearPoly, tensor_op
 
 FR = BLS12_381_FR
@@ -111,10 +118,15 @@ class KZG:
             raise ValueError("invalid polynomial or lagrange basis")
 
     def commit(self, poly: MultilinearPoly):
-        """Pippenger MSM of the evaluation table against the Lagrange basis."""
+        """Pippenger MSM of the evaluation table against the Lagrange basis,
+        point-sharded under an active mesh whose slots it gives enough rows."""
         self._check_poly(poly)
         scalars = fk.from_mont(poly.ctx, poly.table)
-        jac = msm_pippenger(self.g1_lagrange_basis, scalars)
+        mesh = pctx.current_mesh()
+        if mesh is not None and pctx.shardable(scalars.shape[0], mesh):
+            jac = pm.msm_pippenger_sharded(mesh, self.g1_lagrange_basis, scalars)
+        else:
+            jac = msm_pippenger(self.g1_lagrange_basis, scalars)
         return dc.unpack_points(tuple(t[None] for t in jac))[0]
 
     def collapsed_bases(self, upto: int | None = None) -> list:
@@ -158,13 +170,18 @@ class KZG:
 
     def _commit_quotients(self, *openings) -> list:
         """Commit the quotient lists of S openings: at step k the S quotients
-        share ``collapsed_bases()[k]`` and ride one batched MSM. Returns S
-        lists of n host points."""
+        share ``collapsed_bases()[k]`` and ride one batched MSM, segment-sharded
+        under an active mesh whose slots the S segments of 2^(n-1-k) entries
+        give enough rows. Returns S lists of n host points."""
         bases = self.collapsed_bases()
-        steps = [
-            msm_pippenger_multi(bases[k], torch.stack([q[k] for q in openings]))
-            for k in range(self.num_vars)
-        ]
+        mesh = pctx.current_mesh()
+        steps = []
+        for k in range(self.num_vars):
+            stacked = torch.stack([q[k] for q in openings])
+            if mesh is not None and pctx.shardable(stacked.shape[0] * stacked.shape[1], mesh):
+                steps.append(pm.msm_pippenger_multi_sharded(mesh, bases[k], stacked))
+            else:
+                steps.append(msm_pippenger_multi(bases[k], stacked))
         # (n, S, 12) -> host points, opening by opening
         flat = dc.unpack_points(
             tuple(torch.stack([s[i] for s in steps], dim=1).contiguous() for i in range(3))

@@ -167,22 +167,24 @@ POINT_KERNEL_COSTS = {"point_add": point_add_cost, "point_double": point_double_
 _NTT_ELEM = elem_bytes(8)  # BN254 Fr
 
 
-def ntt_phase1_cost(log_n: int):
-    """The first min(LOG_TILE, log_n) stages of a 2^log_n table: the table read
-    and written once, the tile's T/2 distinct twiddles read once, a product a
-    butterfly whose twiddle is not 1."""
+def ntt_phase1_cost(log_n: int, batch: int = 1):
+    """The first min(LOG_TILE, log_n) stages of a 2^log_n table (of each of a
+    batch of tables): the tables read and written once, the tile's T/2
+    distinct twiddles read once, a product a butterfly whose twiddle is not 1."""
     n = 1 << log_n
     log_tile = min(LOG_TILE, log_n)
     products = sum(n // 2 - (n >> s) for s in range(1, log_tile + 1))
-    return 2 * n * _NTT_ELEM + (1 << log_tile) // 2 * _NTT_ELEM, products * cios_lane_ops(8)
+    return (2 * batch * n * _NTT_ELEM + (1 << log_tile) // 2 * _NTT_ELEM,
+            batch * products * cios_lane_ops(8))
 
 
-def ntt_stage_cost(log_n: int, stage: int):
-    """The stage of span m = 2^stage: the table read and written once, its m/2
-    twiddles read once; n/m of its butterflies multiply by 1."""
+def ntt_stage_cost(log_n: int, stage: int, batch: int = 1):
+    """The stage of span m = 2^stage (over each of a batch of tables): the
+    tables read and written once, the m/2 twiddles read once; n/m of a table's
+    butterflies multiply by 1."""
     n = 1 << log_n
-    return (2 * n * _NTT_ELEM + (1 << (stage - 1)) * _NTT_ELEM,
-            (n // 2 - (n >> stage)) * cios_lane_ops(8))
+    return (2 * batch * n * _NTT_ELEM + (1 << (stage - 1)) * _NTT_ELEM,
+            batch * (n // 2 - (n >> stage)) * cios_lane_ops(8))
 
 
 def ntt_cost(log_n: int) -> list:
