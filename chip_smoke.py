@@ -75,11 +75,14 @@ started together), then
      build, warm transforms, and ``fft_evaluate`` /
      ``fft_interpolate`` with their host packing apart.
 
+Before (14), the profiler counts the device kernels of phase 4's fused prove
+(at most 3 a round + 10) and of one of phase 7's fused GKR rounds (at most 5).
 Then (14) each of the four paths runs once more under ``torch.profiler``, and
-the nine kernels are ranked by their device time on the paths less the bound of
-the lanes they covered there; on each path the device runs one kernel a launch
-of ``halves_sums`` and ``fold_and_halves`` and a ``finish_rows`` only after
-``gkr_round`` (none on the sumcheck path), or the script fails. Last,
+the eleven kernels are ranked by their device time on the paths less the bound
+of the lanes they covered there; on each path the device runs one kernel a
+launch of ``halves_sums``, ``fold_and_halves``, ``round_step`` and
+``keccak_f``, a ``round_step`` a round, no ``keccak_f``, and a ``finish_rows``
+only after ``gkr_round`` (none on the sumcheck path), or the script fails. Last,
 
  15. proof bytes and the field oracle: ``mont_mul``, ``fold``, ``halves_sums``,
      ``fold_and_halves``, ``pow_static`` and ``inverse`` on the card against
@@ -91,7 +94,8 @@ of ``halves_sums`` and ``fold_and_halves`` and a ``finish_rows`` only after
      decoded onto the card, equal to the proof in memory, re-encoded to the same
      bytes and accepted by ``gkr.verify``; three blobs with one byte changed (a
      field element, a G1 flag, a length prefix) raise ``ValueError`` on decode
-     or are refused.
+     or are refused; both blobs hashed on the card too (``keccak256_device``,
+     a ``keccak_f`` launch a block), equal to the host's digests.
 
  16. the mesh paths (``zktpu_torch.parallel``): the batched NTT kernels (a
      batch of tables in one launch: 2^10 rows of 2^10, 2^11 of 2^11, 3 of
@@ -106,12 +110,21 @@ of ``halves_sums`` and ``fold_and_halves`` and a ``finish_rows`` only after
      (phase 15's blob); ``dryrun_multichip`` passes; the launches of each
      kernel in the phase and each sharded path's warm time beside the single
      device's.
+ 17. the transcript kernels: ``keccak_f`` against its plain version on 1, 33
+     and 4096 random states, ``round_step`` on 2 and 3 lazy rows (trimmed
+     lengths 0-3, steady rounds and first rounds of one and two blocks, low
+     words at or above p, digests at or above p) for BN254 Fq and BLS12-381 Fr,
+     word for word; each one's device time a launch at the paths' shapes (by
+     the profiler's clock) beside its plain version, its bound and one
+     thread's least time.
 
 The bounds are ``zktpu_torch/utils/roofline.py``'s, at the peaks it lists for
 the card (it raises on a card it does not list). Any failed comparison exits
 non-zero. The last line of the output is one JSON object, ``{"ok": true,
-"device": {...}}``; the line before it lists the nine kernels with their launch
-counts (the four paths and phases 15 and 16), errors, times and bounds.
+"device": {...}}``; the line before it lists the eleven kernels with their
+launch counts (the four paths and phases 15 and 16), errors, times and bounds.
+The fused provers' transcript is ``round_step``'s: phases 3 and 5 count a
+launch a round, and no ``mont_mul`` or permutation of their own.
 """
 
 from __future__ import annotations
@@ -146,6 +159,7 @@ from zktpu_torch.gkr import protocol as gkr
 from zktpu_torch.gkr.circuit import ADD, MUL, Circuit
 from zktpu_torch.hash import keccak as hk
 from zktpu_torch.hash import keccak_device as kd
+from zktpu_torch.hash import kernels as tk
 from zktpu_torch.msm import fixed_base, generator_comb_mul, msm_bitsplit
 from zktpu_torch.msm import pippenger as pp
 from zktpu_torch.ntt import ntt as tn
@@ -257,6 +271,12 @@ MESH_TIMED_RUNS = 3
 KERNEL_SOURCE = "zktpu_torch/csrc/sumcheck_kernels.cu"
 POINT_KERNEL_SOURCE = "zktpu_torch/csrc/point_kernels.cu"
 NTT_KERNEL_SOURCE = "zktpu_torch/csrc/ntt_kernels.cu"
+TRANSCRIPT_KERNEL_SOURCE = "zktpu_torch/csrc/transcript_kernels.cu"
+#: the kernel sources, one nvcc each, all started together
+CUDA_STEMS = ("sumcheck_kernels", "point_kernels", "ntt_kernels", "transcript_kernels")
+#: the TPU kernel each replaces; the transcript kernels replace zktpu's device
+#: programs (XLA, not Pallas): keccak_f the permutation, round_step the round of
+#: gkr/fused_lazy.py:_big_round and of sumcheck/fused.py:_device_prove (:192)
 REPLACES = {
     "ntt_phase1": "zktpu/ntt/pallas_ntt.py:107",
     "ntt_stage": "zktpu/ntt/pallas_ntt.py:154",
@@ -267,17 +287,22 @@ REPLACES = {
     "halves_sums": "zktpu/field/pallas_kernels.py:184",
     "fold_and_halves": "zktpu/field/pallas_kernels.py:227",
     "gkr_round": "zktpu/field/pallas_kernels.py:292",
+    "keccak_f": "zktpu/hash/keccak_device.py:78",
+    "round_step": "zktpu/gkr/fused_lazy.py:215",
 }
-#: launches the main path must make at 2^NUM_VARS. mont_mul: to_mont of the table,
-#: from_mont of each round's two sums, to_mont of each later round's challenge,
-#: and the verifier's to_mont of the point and from_mont of the evaluation; then
-#: round 0, rounds 1..n-1, the verifier's n folds
+#: launches the main path must make at 2^NUM_VARS. mont_mul: to_mont of the
+#: table, and the verifier's to_mont of the point and from_mont of the
+#: evaluation (a round's canonical sums and its challenge's Montgomery form are
+#: round_step's work); then round 0, rounds 1..n-1, one round_step a round, the
+#: verifier's n folds; the transcript's permutations run inside round_step
 EXPECTED_LAUNCHES = {
-    "mont_mul": 1 + NUM_VARS + (NUM_VARS - 1) + 2,
+    "mont_mul": 1 + 2,
     "halves_sums": 1,
     "fold_and_halves": NUM_VARS - 1,
     "fold": NUM_VARS,
     "gkr_round": 0,
+    "round_step": NUM_VARS,
+    "keccak_f": 0,
 }
 
 
@@ -286,21 +311,22 @@ def gkr_expected_launches(n: int) -> dict[str, int]:
     halving circuit of 2^n inputs. The layer whose inputs have j variables
     (j = 1..n) runs 2j rounds.
 
-    gkr_round: one a round, n(n+1) in all.
+    gkr_round and round_step: one a round, n(n+1) in all; the round's canonical
+    form, interpolation, absorb and challenge are round_step's, so a round makes
+    no mont_mul and no keccak_f.
     fold: one a round; j for each of the layer's two input evaluations; one for
     the output polynomial's evaluation, in the prover and again in the verifier.
-    mont_mul, prover: a round makes 3 (the sums' canonical form, the division by
-    two of the interpolation, the challenge into Montgomery form); a layer adds
-    2 + 3 for the phase tables, 2 for the gate masks, 2j for eq(r_b, .), 1 for
-    the challenges' upload, 4(j-1) + 2 + 1 for the folded wiring coefficients
-    (3 at the output layer) and 4 for the two evaluations: 12j + 11. The walk
-    adds 1 for the inputs, n for the circuit, 3 for the output polynomial.
+    mont_mul, prover: a layer makes 2 + 3 for the phase tables, 2 for the gate
+    masks, 2j for eq(r_b, .), 1 for the challenges' upload, 4(j-1) + 2 + 1 for
+    the folded wiring coefficients (3 at the output layer) and 4 for the two
+    evaluations: 6j + 11, that is 3 a round + 11; the walk adds 1 for the inputs,
+    n for the circuit, 3 for the output polynomial.
     mont_mul, verifier: a layer makes 4(j-1) + 5 for the coefficients (5 at the
     output layer), 4j + 1 for the two eq tables, 3 for the weights, 1 for the
     two sums: 8j + 6; the walk adds 2 for the output polynomial.
     """
     rounds = n * (n + 1)
-    prover_mul = 6 * rounds + 11 * n + 1 + n + 3
+    prover_mul = 3 * rounds + 11 * n + 1 + n + 3
     verifier_mul = 4 * rounds + 6 * n + 2
     return {
         "mont_mul": prover_mul + verifier_mul,
@@ -308,6 +334,8 @@ def gkr_expected_launches(n: int) -> dict[str, int]:
         "gkr_round": rounds,
         "halves_sums": 0,
         "fold_and_halves": 0,
+        "round_step": rounds,
+        "keccak_f": 0,
     }
 
 
@@ -577,6 +605,7 @@ def phase_main_path(ctx):
     values = benchmark_values(NUM_VARS)
     torch.cuda.synchronize()
     fk.reset_launches()
+    tk.reset_launches()
     t0 = time.time()
     poly = MultilinearPoly.from_ints(ctx, values)
     torch.cuda.synchronize()
@@ -589,7 +618,7 @@ def phase_main_path(ctx):
     ok = protocol.verify(poly, proof)
     torch.cuda.synchronize()
     t_verify = time.time() - t0
-    launches = dict(fk.launches)
+    launches = {**fk.launches, **tk.launches}
     say(f"  first run: table build+upload {t_build:.3f}s  prove {t_prove:.3f}s "
         f"(includes the host's Keccak pass over the table)  verify {t_verify:.3f}s")
     say(f"  launches on the main path: {launches}")
@@ -648,6 +677,7 @@ def phase_gkr_main_path(ctx):
     check(len(evaluations) == n and evaluations[-1].table.shape[0] == 1, "circuit evaluation shape")
 
     fk.reset_launches()
+    tk.reset_launches()
     t0 = time.time()
     proved = gkr.prove_layers(circuit, inputs)
     torch.cuda.synchronize()
@@ -656,7 +686,7 @@ def phase_gkr_main_path(ctx):
     verdict = gkr.verify_layers(proved.proof, circuit, proved.input_evals)
     torch.cuda.synchronize()
     t_verify = time.time() - t0
-    launches = dict(fk.launches)
+    launches = {**fk.launches, **tk.launches}
     say(f"  first run: inputs upload {t_upload:.3f}s  circuit evaluation {t_eval:.3f}s  "
         f"prove_layers {t_prove:.3f}s (uploads and evaluates again)  verify_layers {t_verify:.3f}s")
     say(f"  launches on the GKR path: {launches}")
@@ -821,23 +851,15 @@ def phase_path_times(ctx, poly) -> None:
         torch.cuda.synchronize()
         return (time.time() - t0) / n * 1e3
 
+    # a round's transcript step: one round_step launch, and its plain version
+    # (the eager chain of canonical form, absorb and challenge that it replaced)
     state = torch.arange(25, dtype=torch.int64, device=ctx.device)
     rows = torch.ones((2, ctx.num_words + fk.EXTRA_WORDS), dtype=torch.int32, device=ctx.device)
-    ms_keccak = host_ms(lambda: kd.keccak_f(state))
-    ms_digest = host_ms(lambda: fused._digest_to_mont(ctx, state[:4]))
-    ms_canon = host_ms(lambda: fused._canonicalize_rows(ctx, rows))
-    # one keccak-f per round, plus the extra blocks of round 0's longer absorb
-    sponge = poly.transcript_sponge()
-    sponge.absorb(vec_to_bytes(ctx.spec, [0]))
-    tail_len = len(sponge.state_lanes()[1])
-    n_keccak = NUM_VARS - 1 + (tail_len + fused.ROUND_ELEMS * ctx.spec.byte_len) // kd.RATE + 1
-    share = n_keccak * ms_keccak / (t_prove * 1e3)
-    say(f"  eager device glue of the prover, per call (host clock): keccak_f {ms_keccak:.3f} ms, "
-        f"_digest_to_mont {ms_digest:.3f} ms, _canonicalize_rows {ms_canon:.3f} ms")
-    say(f"  keccak_f share of the warm prover: {n_keccak} calls x {ms_keccak:.3f} ms = "
-        f"{n_keccak * ms_keccak:.2f} ms of {t_prove * 1e3:.2f} ms = {share:.1%}; "
-        f"scalar field glue {(NUM_VARS - 1) * ms_digest + NUM_VARS * ms_canon:.2f} ms")
-
+    ms_step = host_ms(lambda: tk.round_step(ctx, rows, state))
+    ms_plain = host_ms(lambda: tk.round_step_plain(ctx, rows, state), 5)
+    say(f"  a round's transcript step, per call (host clock, synchronised): round_step "
+        f"{ms_step:.4f} ms, its plain version {ms_plain:.3f} ms; {NUM_VARS} a prove: "
+        f"{NUM_VARS * ms_step:.2f} ms of the warm prove's {t_prove * 1e3:.2f} ms")
 
 
 def count_syncs(fn):
@@ -902,47 +924,66 @@ def phase_gkr_times(ctx, circuit, inputs, proved) -> None:
 
     state = torch.arange(25, dtype=torch.int64, device=ctx.device)
     rows = torch.ones((3, ctx.num_words + fk.EXTRA_WORDS), dtype=torch.int32, device=ctx.device)
-    consts = fused_lazy._PhaseConsts(ctx, np.zeros(25, np.int64), np.zeros(4, np.int64))
-    canon = fused._canonicalize_rows(ctx, rows)
-    ms_keccak = host_ms(lambda: kd.keccak_f(state))
-    ms_canon = host_ms(lambda: fused._canonicalize_rows(ctx, rows))
-    ms_interp = host_ms(lambda: fused_lazy._interp3(ctx, canon, consts.inv2))
-    ms_digest = host_ms(lambda: fused._digest_to_mont(ctx, state[:4]))
-    # one permutation a round, and a spare one where the first absorb of a phase
-    # may cross a block (the output layer's first phase: 64 pending bytes)
-    n_keccak = n * (n + 1) + 1
-    say(f"  eager glue of a fused round, per call (host clock): keccak_f {ms_keccak:.3f} ms, "
-        f"_interp3 {ms_interp:.3f} ms, _canonicalize_rows {ms_canon:.3f} ms, "
-        f"_digest_to_mont {ms_digest:.3f} ms")
+    consts = fused_lazy._PhaseConsts(ctx, np.zeros(25, np.int64), np.zeros(8, np.int64))
+    ms_step = host_ms(lambda: tk.round_step(ctx, rows, state))
+    ms_first = host_ms(lambda: tk.round_step(ctx, rows, consts.state, consts.tail))
+    ms_plain = host_ms(lambda: tk.round_step_plain(ctx, rows, state), 5)
     rounds = n * (n + 1)
-    alone = {"keccak_f": n_keccak * ms_keccak, "_interp3": rounds * ms_interp,
-             "_canonicalize_rows": rounds * ms_canon, "_digest_to_mont": rounds * ms_digest}
-    total = sum(alone.values())
-    say(f"  those calls of a proof, timed alone: {total / 1e3:.3f} s against {t_prove:.3f} s for "
-        f"the whole warm prove_layers (the host's speed drifts between the two); in "
-        f"proportion: " + ", ".join(f"{k} {v / total:.1%}" for k, v in alone.items()))
+    say(f"  a fused round's transcript step, per call (host clock, synchronised): round_step "
+        f"{ms_step:.4f} ms (a phase's first, two blocks: {ms_first:.4f} ms), its plain version "
+        f"{ms_plain:.3f} ms; {rounds} a proof: {rounds * ms_step / 1e3:.3f} s of the warm "
+        f"prove_layers' {t_prove:.3f} s")
 
 
-def phase_gkr_launches_a_round(ctx) -> None:
-    """One fused layer alone, small enough for the profiler: the eager launches
-    of a round. Runs last: once the profiler has been on, every later launch in
-    the process costs the host more."""
+#: device kernels of one fused 2^20 sumcheck prove and of one fused GKR round
+#: before the transcript kernels (PERF.md section 5: their eager chain)
+DEVICE_KERNELS_BEFORE = {"sumcheck prove": 13860, "GKR round": 1334}
+
+
+def phase_device_kernels(ctx, gctx) -> None:
+    """The device kernels of phase 4's warm 2^20 sumcheck prove and of one of
+    phase 7's fused GKR rounds, by the profiler: at most 3 a round + 10 for the
+    prove, at most 5 a round for the GKR phase (gkr_round, finish_rows,
+    round_step, fold), then one whole fused layer with its table building. Runs
+    last: once the profiler has been on, every later launch in the process
+    costs the host more."""
     n = GKR_NUM_VARS
+    poly = MultilinearPoly.from_ints(ctx, benchmark_values(NUM_VARS))
+    fused.prove(poly)
+    before = tk.launches["round_step"]
+    kernels = count_device_kernels(lambda: fused.prove(poly))
+    check(tk.launches["round_step"] - before == NUM_VARS, "a prove is not a round_step a round")
+    say(f"  one fused 2^{NUM_VARS} sumcheck prove (phase 4's): {kernels} device kernels "
+        f"(before the transcript kernels: {DEVICE_KERNELS_BEFORE['sumcheck prove']})")
+    check(kernels <= 3 * NUM_VARS + 10, f"{kernels} device kernels in a prove")
+    del poly
+
     rng = np.random.default_rng(3)
+    log_size = 10
+    tables = random_table(gctx, rng, 2, 2, 1 << log_size)
+    transcript = Transcript(gctx.spec)
+    transcript.append_field_elements([1, 2])
+    pairs, tail = transcript.sponge().state_lanes()
+    consts = fused_lazy._PhaseConsts(gctx, kd.pairs_to_lanes(pairs), kd.bytes_to_lanes(tail))
+    fused_lazy._device_phase(gctx, tables, consts)
+    kernels = count_device_kernels(lambda: fused_lazy._device_phase(gctx, tables, consts))
+    say(f"  one fused GKR phase of {log_size} rounds (phase 7's rounds): {kernels} device "
+        f"kernels, {kernels / log_size:g} a round (before the transcript kernels: "
+        f"{DEVICE_KERNELS_BEFORE['GKR round']} a round)")
+    check(kernels <= 5 * log_size, f"{kernels / log_size:g} device kernels a GKR round")
+
     w_vars = 6
     layer_inputs = [int(v) for v in rng.integers(0, 1 << 61, size=1 << w_vars)]
-    w_poly = MultilinearPoly.from_ints(ctx, layer_inputs)
+    w_poly = MultilinearPoly.from_ints(gctx, layer_inputs)
     fbc = gkr_lazy.LazyFbc(
-        ctx, gkr_lazy._encode(ctx, list(range(1, 1 + (1 << (w_vars - 1))))),
-        gkr_lazy._encode(ctx, list(range(7, 7 + (1 << (w_vars - 1))))), w_poly)
-    transcript = Transcript(ctx.spec)
-    transcript.append_field_elements([1])
+        gctx, gkr_lazy._encode(gctx, list(range(1, 1 + (1 << (w_vars - 1))))),
+        gkr_lazy._encode(gctx, list(range(7, 7 + (1 << (w_vars - 1))))), w_poly)
     kernels = count_device_kernels(
         lambda: fused_lazy.gkr_prove_lazy_fused(0, fbc, copy.deepcopy(transcript)))
     rounds = 2 * w_vars
-    say(f"  one fused layer of {rounds} rounds ({1 << w_vars} inputs): {kernels} device kernels, "
-        f"{kernels / rounds:.0f} a round; at that rate the {n * (n + 1)} rounds of a "
-        f"2^{n} proof launch about {kernels / rounds * n * (n + 1):.0f}")
+    say(f"  one fused layer of {rounds} rounds ({1 << w_vars} inputs, its tables built): "
+        f"{kernels} device kernels, {kernels / rounds:.0f} a round; at that rate the "
+        f"{n * (n + 1)} rounds of a 2^{n} proof launch about {kernels / rounds * n * (n + 1):.0f}")
 
 
 # ----------------------------------------------------------------------
@@ -1108,10 +1149,11 @@ def reset_all_launches() -> None:
     fk.reset_launches()
     pk.reset_launches()
     nk.reset_launches()
+    tk.reset_launches()
 
 
 def all_launches() -> dict[str, int]:
-    return {**fk.launches, **pk.launches, **nk.launches}
+    return {**fk.launches, **pk.launches, **nk.launches, **tk.launches}
 
 
 def kzg_expected_doublings(n: int) -> int:
@@ -1176,8 +1218,9 @@ def phase_kzg_main_path(ctx, circuit, inputs, layers_launches):
     walk = gkr_expected_launches(n)
     check(all(launches[name] >= walk[name] for name in walk),
           "the full proof launched the layer walk's kernels less often than the walk alone")
-    check(launches["gkr_round"] == walk["gkr_round"] == layers_launches["gkr_round"],
-          "gkr_round launches differ from the layer walk's")
+    for name in ("gkr_round", "round_step"):
+        check(launches[name] == walk[name] == layers_launches[name],
+              f"{name} launches differ from the layer walk's")
 
     p = ctx.spec.modulus
     bad_point = hc.add(kzg.proof[0][n // 2], hc.G1_GEN)
@@ -1568,7 +1611,7 @@ def phase_ntt_times(ctx, results) -> dict[int, dict[str, dict]]:
 
 
 def all_lanes() -> dict[str, int]:
-    return {**fk.lanes, **pk.lanes, **nk.lanes}
+    return {**fk.lanes, **pk.lanes, **nk.lanes, **tk.lanes}
 
 
 def profile_path(fn) -> dict:
@@ -1585,7 +1628,7 @@ def profile_path(fn) -> dict:
         fn()
         torch.cuda.synchronize()
     t_run = time.time() - t0
-    names = fk.KERNEL_NAMES + pk.KERNEL_NAMES + nk.KERNEL_NAMES + ("finish_rows",)
+    names = fk.KERNEL_NAMES + pk.KERNEL_NAMES + nk.KERNEL_NAMES + tk.KERNEL_NAMES + ("finish_rows",)
     device_ms = {name: 0.0 for name in names}
     device_n = {name: 0 for name in names}
     pattern = re.compile(r"\b(" + "|".join(names) + r")_kernel\b")
@@ -1598,39 +1641,53 @@ def profile_path(fn) -> dict:
                 device_ms[found.group(1)] += e.duration_ns() / 1e6
                 device_n[found.group(1)] += 1
     return {"launches": all_launches(), "lanes": all_lanes(), "doublings": pk.doublings,
+            "rounds": dict(tk.rounds),
             "device_ms": device_ms, "device_n": device_n, "seconds": t_run,
             "total_s": time.time() - t0}
 
 
 def check_one_launch(profiles: dict[str, dict]) -> None:
-    """halves_sums and fold_and_halves are one device kernel a wrapper launch,
-    and finish_rows runs after gkr_round alone: on every profiled path the
-    device's count of each kernel equals its wrapper's launches, so the
-    sumcheck path (1 + 19 launches, no gkr_round) runs no finish_rows."""
+    """halves_sums, fold_and_halves and the two transcript kernels are one
+    device kernel a wrapper launch, and finish_rows runs after gkr_round alone:
+    on every profiled path the device's count of each kernel equals its
+    wrapper's launches, so the sumcheck path (1 + 19 launches, no gkr_round)
+    runs no finish_rows; each path's transcript is a round_step a round (a
+    gkr_round a round on the GKR paths), and no path launches keccak_f (its
+    permutations run inside round_step)."""
+    one_launch = fk._ONE_LAUNCH + tk.KERNEL_NAMES
     for path, p in profiles.items():
         ran, launched = p["device_n"], p["launches"]
-        for name in fk._ONE_LAUNCH:
+        for name in one_launch:
             check(ran[name] == launched[name],
                   f"{path}: {ran[name]} {name} kernels ran for {launched[name]} launches")
         check(ran["finish_rows"] == launched["gkr_round"],
               f"{path}: {ran['finish_rows']} finish_rows kernels ran for "
               f"{launched['gkr_round']} gkr_round launches")
+        check(launched["keccak_f"] == 0, f"{path} launched keccak_f")
+        rounds = NUM_VARS if path == "sumcheck" else launched["gkr_round"]
+        check(launched["round_step"] == rounds,
+              f"{path}: {launched['round_step']} round_step launches for {rounds} rounds")
     sumcheck = profiles["sumcheck"]
-    for name in fk._ONE_LAUNCH:
+    for name in fk._ONE_LAUNCH + ("round_step",):
         check(sumcheck["launches"][name] == EXPECTED_LAUNCHES[name],
               f"profiled sumcheck: {sumcheck['launches'][name]} {name} launches")
     check(sumcheck["device_n"]["finish_rows"] == 0, "finish_rows ran on the sumcheck path")
-    say("  one device kernel a launch of halves_sums and fold_and_halves on every path, "
-        "finish_rows only after gkr_round: " + ", ".join(
+    say("  one device kernel a launch of halves_sums, fold_and_halves, round_step and keccak_f "
+        "on every path, finish_rows only after gkr_round: " + ", ".join(
             f"{path} {p['device_n']['halves_sums']} + {p['device_n']['fold_and_halves']}, "
-            f"finish_rows {p['device_n']['finish_rows']}" for path, p in profiles.items()))
+            f"round_step {p['device_n']['round_step']}, finish_rows {p['device_n']['finish_rows']}"
+            for path, p in profiles.items()))
 
 
 def print_ranking(kernels: list[dict], profiles: dict[str, dict]) -> list[dict]:
-    """The nine kernels ranked by device ms on the four paths (one profiled run
+    """The eleven kernels ranked by device ms on the four paths (one profiled run
     of each) less the bound of the lanes they covered there; then, for
     comparison, the earlier ranking (launches x (ms - bound_ms) at each row's
     size), which prices every launch at the row's width."""
+    rounds = {}  # round_step's launches by kind, each kind at its own cost
+    for p in profiles.values():
+        for kind, n in p["rounds"].items():
+            rounds[kind] = rounds.get(kind, 0) + n
     rows = []
     for k in kernels:
         name = k["name"]
@@ -1638,7 +1695,7 @@ def print_ranking(kernels: list[dict], profiles: dict[str, dict]) -> list[dict]:
         lanes = sum(p["lanes"][name] for p in profiles.values())
         doublings = sum(p["doublings"] for p in profiles.values()) if name == "point_double" else 0
         device = sum(p["device_ms"][name] for p in profiles.values())
-        bound = roofline.lanes_bound_ms(name, lanes, doublings)
+        bound = roofline.lanes_bound_ms(name, lanes, doublings, rounds=rounds)
         rows.append({"name": name, "launches": launches, "lanes": lanes, "device_ms": device,
                      "bound_ms": bound, "loss_ms": device - bound})
     rows.sort(key=lambda r: -r["loss_ms"])
@@ -1819,6 +1876,15 @@ def phase_proof_bytes(sum_proof, gkr_blob: bytes, gkr_encode_s: float, kept, cir
           f"sumcheck blob digest differs from the stored {SUMCHECK_BLOB_DIGEST_2E20}")
     check(back == sum_proof and ser.encode_sumcheck_proof(back, BN254_FQ) == blob,
           "the sumcheck blob does not round-trip")
+    # both blobs hashed on the card as well: keccak256_device, a keccak_f launch a block
+    for name, data in (("sumcheck", blob), ("GKR", gkr_blob)):
+        before = tk.launches["keccak_f"]
+        on_card, t_card = timed(lambda: kd.digest_to_bytes(kd.keccak256_device(data, "cuda")))
+        blocks = len(data) // kd.RATE + 1
+        check(on_card == hk.keccak256(data), f"the {name} blob's digest on the card differs")
+        check(tk.launches["keccak_f"] - before == blocks, f"{name} blob: not a keccak_f a block")
+        say(f"  the {name} blob's digest on the card == the host's: {blocks} keccak_f launches, "
+            f"{t_card * 1e3:.1f} ms")
 
     decoded, t_dec = timed(lambda: ser.decode_gkr_proof(gkr_blob))
     say(f"  2^{GKR_NUM_VARS}-input GKR proof blob: {len(gkr_blob)} bytes, encode "
@@ -2028,6 +2094,150 @@ def phase_mesh_paths(ctx, gctx, rctx, sum_proof, circuit, inputs, taus, gkr_blob
 
 
 # ----------------------------------------------------------------------
+# phase 17: the transcript kernels
+# ----------------------------------------------------------------------
+
+#: keccak_f against its plain version on batches of this many random states
+KECCAK_CHECK_STATES = (1, 33, 4096)
+#: round_step against its plain version: (rows, pending tail lanes or None for
+#: a steady round, trimmed length of GKR's coefficients). Sumcheck tails of 8
+#: and 9 lanes take round 0's content into one block and two; GKR tails of 8
+#: lanes keep 0-2 coefficients in one block and carry 3 into two, of 16 lanes
+#: carry 1-3 and leave 0 in one.
+ROUND_CHECKS = (
+    ((2, None, 2), (2, 0, 2), (2, 8, 2), (2, 9, 2), (2, 16, 2))
+    + tuple((3, None, m) for m in range(4))
+    + tuple((3, tail, m) for tail in (0, 8, 16) for m in range(4))
+)
+#: launches a transcript kernel is timed over, by the profiler's device clock
+TRANSCRIPT_TIMED_RUNS = 200
+
+
+def lane_err(a, b) -> int:
+    """The largest absolute difference of the 32-bit words of two lane tensors."""
+    if a.shape != b.shape:
+        return -1
+    return max_abs_err(a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
+
+
+def random_lanes(rng, n: int, device):
+    return torch.from_numpy(rng.integers(0, 1 << 64, size=n, dtype=np.uint64).view(np.int64)).to(
+        device)
+
+
+def round_check_inputs(ctx, rng, k: int, tail, m: int):
+    """Lazy rows, state and tail of one round: rows whose values are two
+    half-sums (k = 2) or the values at t = 0, 1, 2 of a polynomial of trimmed
+    length m (k = 3), each as S = v R mod p + j p, row 0 with j = 1 (low words
+    at or above p), the others a random j below 2^32 (a high word)."""
+    p, r = ctx.spec.modulus, ctx.spec.R
+    if k == 2:
+        values = [int(v) % p for v in rng.integers(0, 1 << 62, size=2)]
+    else:
+        coeffs = [int(rng.integers(1, 1 << 62)) if i < m else 0 for i in range(3)]
+        values = [(coeffs[0] + coeffs[1] * t + coeffs[2] * t * t) % p for t in range(3)]
+    sums = [v * r % p + (1 if i == 0 else int(rng.integers(1, 1 << 32))) * p
+            for i, v in enumerate(values)]
+    rows = ctx.to_device(np.stack([
+        np.frombuffer(x.to_bytes(4 * (ctx.num_words + 1), "little"), dtype="<u4") for x in sums]))
+    state = random_lanes(rng, 25, ctx.device)
+    return rows, state, None if tail is None else random_lanes(rng, tail, ctx.device)
+
+
+def device_ms(fn, kernel: str, runs: int = TRANSCRIPT_TIMED_RUNS) -> float:
+    """Median device milliseconds of ``kernel``'s launches over ``runs`` calls
+    of ``fn``, by the profiler's device clock: a launch of a one-thread kernel
+    takes microseconds, and a CUDA event pair around one call would time the
+    wrapper's host path instead."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    durations = [e.duration_ns() for e in prof.profiler.kineto_results.events()
+                 if e.device_type().name == "CUDA" and f"{kernel}_kernel" in e.name()]
+    # late in a long process the tracer may drop a few of a burst's records
+    check(runs // 2 <= len(durations) <= runs,
+          f"{kernel}: {len(durations)} device kernels traced for {runs} calls")
+    return statistics.median(durations) / 1e6
+
+
+def transcript_record(name: str, ms: float, plain_ms: float, cost, what: str) -> dict:
+    b = roofline.bound(*cost)
+    chain_ms = roofline.one_thread_ms(cost[1])
+    say(f"  {name}, {what}: {ms * 1e3:.3f} us a launch on the device, plain {plain_ms:.3f} ms, "
+        f"bound {b.ms * 1e6:.4f} ns by {b.by} (bytes {b.bytes_ms * 1e6:.4f} ns, operations "
+        f"{b.ops_ms * 1e6:.4f} ns), one thread's least time {chain_ms * 1e3:.3f} us "
+        f"({cost[1]} operations at one a cycle)")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b.ms, "bound_by": b.by,
+            "one_thread_ms": chain_ms}
+
+
+def phase_transcript_kernels() -> tuple[dict[str, int], dict[str, dict]]:
+    """keccak_f and round_step against their plain versions, word for word, then
+    their times at the paths' shapes."""
+    t0 = time.time()
+    errs = {name: 0 for name in tk.KERNEL_NAMES}
+    rng = np.random.default_rng(17)
+    device = torch.device("cuda")
+    for b in KECCAK_CHECK_STATES:
+        states = random_lanes(rng, 25 * b, device).reshape(b, 25)
+        states[0] = 0
+        err = lane_err(tk.keccak_f(states), tk.keccak_f_plain(states))
+        check(err == 0, f"keccak_f differs from its plain version on {b} states")
+        errs["keccak_f"] = max(errs["keccak_f"], err)
+    say(f"  keccak_f on {', '.join(map(str, KECCAK_CHECK_STATES))} random states (the zero "
+        f"state first): max error {errs['keccak_f']}")
+    for spec in (BN254_FQ, BLS12_381_FR):
+        ctx = fb.get_ctx(spec)
+        at_or_above_p = 0
+        for k, tail, m in ROUND_CHECKS:
+            rows, state, tail_lanes = round_check_inputs(ctx, rng, k, tail, m)
+            got = tk.round_step(ctx, rows, state, tail_lanes)
+            want = tk.round_step_plain(ctx, rows, state, tail_lanes)
+            err = max(max_abs_err(got[0], want[0]), lane_err(got[1], want[1]),
+                      max_abs_err(got[2], want[2]))
+            check(err == 0, f"round_step differs from its plain version ({spec.name}, "
+                  f"k = {k}, tail {tail}, trimmed length {m})")
+            errs["round_step"] = max(errs["round_step"], err)
+            digest = kd.digest_to_bytes(got[1][:4])
+            at_or_above_p += int.from_bytes(digest, "little") >= spec.modulus
+        check(at_or_above_p > 0, f"no digest at or above p for {spec.name}")
+        say(f"  round_step, {spec.name}: {len(ROUND_CHECKS)} rounds (2 and 3 rows, trimmed "
+            f"lengths 0-3, steady and first rounds of one and two blocks, low words at or above "
+            f"p; {at_or_above_p} digests at or above p): max error {errs['round_step']}")
+
+    times = {}
+    state = random_lanes(rng, 25, device)
+    times["keccak_f"] = transcript_record(
+        "keccak_f", device_ms(lambda: tk.keccak_f(state), "keccak_f"),
+        time_events(lambda: tk.keccak_f_plain(state), 5), roofline.keccak_f_cost(1),
+        "one state (a block of keccak256_device)")
+    wide = random_lanes(rng, 25 * 4096, device).reshape(4096, 25)
+    transcript_record("keccak_f", device_ms(lambda: tk.keccak_f(wide), "keccak_f", 20),
+                      time_events(lambda: tk.keccak_f_plain(wide), 3),
+                      roofline.keccak_f_cost(4096), "4096 states")
+    gctx, sctx = fb.get_ctx(BLS12_381_FR), fb.get_ctx(BN254_FQ)
+    for label, ctx, k, tail in (("a steady GKR round", gctx, 3, None),
+                                ("a steady sumcheck round", sctx, 2, None),
+                                ("a GKR phase's first round, two blocks", gctx, 3, 16)):
+        rows, state, tail_lanes = round_check_inputs(ctx, rng, k, tail, 3)
+        rec = transcript_record(
+            "round_step", device_ms(lambda: tk.round_step(ctx, rows, state, tail_lanes),
+                                    "round_step"),
+            time_events(lambda: tk.round_step_plain(ctx, rows, state, tail_lanes), 5),
+            roofline.round_step_cost(k, 4 if tail is None else tail, 1 if tail is None else 2,
+                                     tail is not None), label)
+        times.setdefault("round_step", rec)
+    torch.cuda.synchronize()
+    say(f"  (phase 17 took {time.time() - t0:.1f}s)")
+    return errs, times
+
+
+# ----------------------------------------------------------------------
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -2038,18 +2248,21 @@ def main() -> int:
     say(f"[1] device: {gpu}")
     say(f"    torch {torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.time()
-    _build.build_cuda_libraries(["sumcheck_kernels", "point_kernels", "ntt_kernels"])
+    _build.build_cuda_libraries(list(CUDA_STEMS))
     fk.library()
     pk.library()
     nk.library()
+    tk.library()
     say(f"    kernels built from {KERNEL_SOURCE} ({_build.build_seconds['sumcheck_kernels']:.1f}s), "
-        f"{POINT_KERNEL_SOURCE} ({_build.build_seconds['point_kernels']:.1f}s) and "
-        f"{NTT_KERNEL_SOURCE} ({_build.build_seconds['ntt_kernels']:.1f}s), side by side "
-        f"in {time.time() - t0:.1f}s (0.0 = already built)")
+        f"{POINT_KERNEL_SOURCE} ({_build.build_seconds['point_kernels']:.1f}s), "
+        f"{NTT_KERNEL_SOURCE} ({_build.build_seconds['ntt_kernels']:.1f}s) and "
+        f"{TRANSCRIPT_KERNEL_SOURCE} ({_build.build_seconds['transcript_kernels']:.1f}s), side by "
+        f"side in {time.time() - t0:.1f}s (0.0 = already built)")
     for stem, needles in (("sumcheck_kernels", ("gkr_round_kernel", "halves_sums_kernel",
                                                 "fold_and_halves_kernel")),
                           ("point_kernels", ("point_add_kernel", "point_double_kernel")),
-                          ("ntt_kernels", ("ntt_phase1_kernel", "ntt_stage_kernel"))):
+                          ("ntt_kernels", ("ntt_phase1_kernel", "ntt_stage_kernel")),
+                          ("transcript_kernels", ("keccak_f_kernel", "round_step_kernel"))):
         for needle in needles:
             for line in resource_usage(_build.build_log[stem], needle):
                 say(f"    {line}")
@@ -2131,7 +2344,7 @@ def main() -> int:
     ntt_outputs = {log_n: (r[0], r[2]) for log_n, r in ntt_results.items()}
     del ntt_results, ntt_evals, ntt_interp
     torch.cuda.empty_cache()
-    phase_gkr_launches_a_round(gctx)
+    phase_device_kernels(ctx, gctx)
     say("[14] each path once more under torch.profiler: the kernels' device time at real widths")
     profiles = phase_profiles(ctx, gctx, rctx, circuit, inputs, taus, ntt_inputs, ntt_poly)
     check_one_launch(profiles)
@@ -2157,12 +2370,19 @@ def main() -> int:
                                    "point_add", "point_double"):
         check(mesh_launches[name] > 0, f"the mesh paths launched no {name}")
 
+    say("[17] the transcript kernels, keccak_f and round_step, against their plain PyTorch "
+        "versions (exact), and their times")
+    transcript_errs, transcript_times = phase_transcript_kernels()
+    errs.update(transcript_errs)
+
     kernels = []
-    for name in fk.KERNEL_NAMES + pk.KERNEL_NAMES + nk.KERNEL_NAMES:
+    for name in fk.KERNEL_NAMES + pk.KERNEL_NAMES + nk.KERNEL_NAMES + tk.KERNEL_NAMES:
         if name in pk.KERNEL_NAMES:
             rec, source = point_times[1 << GKR_NUM_VARS][name], POINT_KERNEL_SOURCE
         elif name in nk.KERNEL_NAMES:
             rec, source = ntt_times[NTT_LOG_SIZES[0]][name], NTT_KERNEL_SOURCE
+        elif name in tk.KERNEL_NAMES:
+            rec, source = transcript_times[name], TRANSCRIPT_KERNEL_SOURCE
         else:
             rec, source = times[1 << NUM_VARS][name], KERNEL_SOURCE
         kernels.append({

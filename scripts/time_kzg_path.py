@@ -41,7 +41,7 @@ def main() -> int:
     t_start = time.time()
     cs.say(f"tree {os.path.dirname(os.path.dirname(os.path.abspath(__file__)))}")
     cs.say(cs.gpu_line())
-    _build.build_cuda_libraries(["sumcheck_kernels", "point_kernels", "ntt_kernels"])
+    _build.build_cuda_libraries(list(cs.CUDA_STEMS))
     n = cs.GKR_NUM_VARS
     ctx = fb.get_ctx(BLS12_381_FR)
     structure, inputs = cs.gkr_benchmark(n)

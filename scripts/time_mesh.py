@@ -45,7 +45,7 @@ def main() -> int:
         return 1
     t_start = time.time()
     print(f"{cs.gpu_line()}; {torch.cuda.device_count()} cards", flush=True)
-    _build.build_cuda_libraries(["sumcheck_kernels", "point_kernels", "ntt_kernels"])
+    _build.build_cuda_libraries(list(cs.CUDA_STEMS))
     ctx, gctx, rctx = (fb.get_ctx(s) for s in (BN254_FQ, BLS12_381_FR, BN254_FR))
     proof = fused.prove(MultilinearPoly.from_ints(ctx, cs.benchmark_values(cs.NUM_VARS)))
     structure, inputs = cs.gkr_benchmark(cs.GKR_NUM_VARS)

@@ -11,6 +11,7 @@ converted and refuse the tampered ones. The port's whole ``prove`` / ``verify``
 test_torch_gkr_kzg_small.py: this file is the longest of the run as it is.
 """
 
+import contextlib
 import copy
 
 import numpy as np
@@ -59,6 +60,10 @@ CIRCUITS = {
     "one_gate": ([[MUL]], [3, 4], [5]),
     "random_32": _random_circuit(),
 }
+#: the circuit whose zktpu proof is dense and counted by zktpu's tracker, so
+#: test_dense_prover_tracker_counts_equal_zktpu reads the counts of the proof
+#: the other tests compare (zktpu's dense and lazy proofs are the same values)
+TRACKED = "two_layers"
 MODES = {
     "dense": dict(lazy=False),
     "lazy": dict(lazy=True, fused=False),
@@ -71,7 +76,13 @@ class Case:
         self.structure, self.inputs, taus = CIRCUITS[name]
         self.circuit = Circuit(ctx, self.structure)
         self.jcircuit = jcircuit.Circuit(jctx, self.structure)
-        self.jproof = jgkr.prove(self.jcircuit, self.inputs, taus=taus)
+        tracked = name == TRACKED
+        jtracker.reset()
+        with jtracker.tracking() if tracked else contextlib.nullcontext():
+            self.jproof = jgkr.prove(self.jcircuit, self.inputs, taus=taus,
+                                     lazy=False if tracked else None)
+        self.jcounts = dict(jtracker.summary()) if tracked else None
+        jtracker.reset()
         self.converted = convert.gkr_proof_from_zktpu(ctx, self.jproof)
         self.input_evals = tuple(int(v) for v in self.jproof.input_proof.opened_evals)
         self._proofs = {}
@@ -189,15 +200,12 @@ def test_dense_prover_tracker_counts_equal_zktpu():
     """The dense walk counts every field operation where zktpu does. zktpu's
     prove goes on to open the input polynomial at r_b and r_c, two evaluations
     more of the 4-entry table (3 mul and 6 add each), and counts nothing else."""
-    structure, inputs, taus = CIRCUITS["two_layers"]
+    case = _cases.get(TRACKED) or Case(TRACKED)
     tracker.reset()
-    jtracker.reset()
-    with tracker.tracking(), jtracker.tracking():
-        gkr.prove_layers(Circuit(ctx, structure), inputs, lazy=False)
-        jgkr.prove(jcircuit.Circuit(jctx, structure), inputs, taus=taus, lazy=False)
-    want = dict(jtracker.summary())
+    with tracker.tracking():
+        gkr.prove_layers(Circuit(ctx, case.structure), case.inputs, lazy=False)
+    want = dict(case.jcounts)
     want["mul"] -= 2 * 3
     want["add"] -= 2 * 6
     assert tracker.summary() == want and tracker.summary()
     tracker.reset()
-    jtracker.reset()

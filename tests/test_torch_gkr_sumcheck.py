@@ -32,10 +32,10 @@ from zktpu_torch.field.spec import BLS12_381_FR
 from zktpu_torch.gkr import fused_lazy, lazy
 from zktpu_torch.gkr.circuit import ADD, MUL, Layer
 from zktpu_torch.hash import keccak_device as kd
+from zktpu_torch.hash import kernels as tk
 from zktpu_torch.hash.keccak import Sponge
 from zktpu_torch.poly.composed import ProductPoly, SumPoly
 from zktpu_torch.poly.multilinear import MultilinearPoly
-from zktpu_torch.sumcheck import fused as fp
 from zktpu_torch.sumcheck import protocol as sc
 from zktpu_torch.transcript import Transcript
 from zktpu_torch.utils import tracker
@@ -267,67 +267,82 @@ def _consts(tail: bytes):
 
 
 def _coeff_rows(rng, k):
-    """(3, W) canonical rows whose trimmed length is k, and the k values."""
+    """(3, W + 1) lazy rows (the Montgomery words of y_0, y_1, y_2, no high
+    word) of a polynomial whose trimmed length is k, and its k coefficients."""
     values = [v or 1 for v in _values(rng, k)]
-    rows = ctx.to_device(ctx.pack(values + [0] * (3 - k)))
-    return rows, values
+    coeffs = values + [0] * (3 - k)
+    ys = [(coeffs[0] + coeffs[1] * t + coeffs[2] * t * t) % P for t in range(3)]
+    words = ctx.pack([y * FR.R % P for y in ys])
+    rows = np.concatenate([words, np.zeros((3, 1), np.uint32)], axis=1)
+    return ctx.to_device(rows), values
+
+
+def _challenge_int(challenge) -> int:
+    """A Montgomery challenge as the plain value."""
+    return int(ctx.unpack(challenge)) * pow(FR.R, -1, P) % P
 
 
 def test_interp3_equals_host_interpolation():
+    """round_step's interpolation and trim, in their plain form."""
     rng = np.random.default_rng(30)
-    consts = _consts(b"")[1]
     cases = [_values(rng, 3), [7, 10, 13], [4, 4, 4], [0, 0, 0], [P - 1, 0, 1]]
     for ys in cases:
         rows, jrows = ctx.to_device(ctx.pack(ys)), jnp.asarray(jctx.pack(ys))
-        got = fused_lazy._interp3(ctx, rows, consts.inv2)
+        got = tk.interp3_plain(ctx, rows)
         assert _same(got, jfused_lazy._interp3(jctx, jrows))
         want = sc.UnivariatePoly.interpolate(FR, list(enumerate(ys))).coefficients
         ints = [int(v) for v in ctx.unpack(got)]
         assert ints[: len(want)] == want and not any(ints[len(want):])
-        assert int(fused_lazy._trim_len(got, consts.trim_index)) == len(want)
+        assert tk.trim_len(got) == len(want)
 
 
 @pytest.mark.parametrize("tail_elems", [1, 2, 3, 4])
 def test_first_absorb_of_a_phase_equals_the_host_sponge(tail_elems):
     """Pending tail || trimmed coefficients, for every trimmed length: the state
-    after the device absorb gives the host sponge's digest. With 64 pending
-    bytes three coefficients cross into a second block and fewer do not; with
-    128 even one does."""
+    after the first round_step of a phase gives the host sponge's digest, and
+    its challenge the digest mod p. With 64 pending bytes three coefficients
+    cross into a second block and fewer do not; with 128 even one does."""
     rng = np.random.default_rng(31 + tail_elems)
     tail = vec_to_bytes(FR, _values(rng, tail_elems))
     sponge, consts = _consts(tail)
-    assert (consts.min_blocks, consts.max_blocks) == {1: (1, 1), 2: (1, 2), 3: (1, 2), 4: (1, 2)}[tail_elems]
+    blocks = [tk.absorb_pad(len(tail) // 8 + 4 * k).shape[0] // kd.RATE_LANES for k in range(4)]
+    assert (min(blocks), max(blocks)) == {1: (1, 1), 2: (1, 2), 3: (1, 2), 4: (1, 2)}[tail_elems]
     for k in range(4):
         rows, values = _coeff_rows(rng, k)
-        state = fused_lazy._absorb_tail_trim(ctx, rows, consts)
+        coeffs, state, challenge = tk.round_step(ctx, rows, consts.state, consts.tail)
+        assert [int(v) for v in ctx.unpack(coeffs)][:k] == values
         host = sponge.copy()
         host.absorb(vec_to_bytes(FR, values))
         assert kd.digest_to_bytes(state[:4]) == host.digest()
+        assert _challenge_int(challenge) == int.from_bytes(host.digest(), "little") % P
 
 
 def test_steady_round_absorb_equals_the_host_sponge():
     rng = np.random.default_rng(36)
-    consts = _consts(b"")[1]
     digest = bytes(rng.integers(0, 256, size=32, dtype=np.uint8))
-    lanes = torch.from_numpy(kd.bytes_to_lanes(digest))
+    state = torch.from_numpy(np.concatenate([kd.bytes_to_lanes(digest),
+                                             rng.integers(0, 1 << 62, size=21)]))
     for k in range(4):
         rows, values = _coeff_rows(rng, k)
-        state = fused_lazy._squeeze_trim(ctx, lanes, rows, consts)
+        _, new_state, challenge = tk.round_step(ctx, rows, state)
         host = Sponge()
         host.absorb(digest + vec_to_bytes(FR, values))
-        assert kd.digest_to_bytes(state[:4]) == host.digest()
+        assert kd.digest_to_bytes(new_state[:4]) == host.digest()
+        assert _challenge_int(challenge) == int.from_bytes(host.digest(), "little") % P
 
 
 def test_plain_sumcheck_pads_are_unchanged():
-    """The 0..3-element padding helpers give the plain sumcheck (two elements a
-    round) the layout it had."""
-    pad = fp._round_pad(ctx)
-    assert pad.shape == (25,) and pad[12] == 1 and pad[16] == -(1 << 63)
+    """The padding round_step lays out gives the plain sumcheck (two elements a
+    round) the layout it had: a steady round's digest || two elements in one
+    block, a first absorb of a 96-byte tail and two elements over two; a round
+    of more than three elements is refused."""
+    pad = tk.absorb_pad(4 + 8)
+    assert pad.shape == (17,) and pad[12] == 1 and pad[16] == -(1 << 63)
     assert np.count_nonzero(pad) == 2
-    assert np.array_equal(pad, fp._round_pad(ctx, 2))
-    tail_pad = fp._tail_block_pad(ctx, 96)
+    tail_pad = tk.absorb_pad(12 + 8)
     assert tail_pad.shape == (34,) and tail_pad[20] == 1 and tail_pad[33] == -(1 << 63)
-    wide = fp._tail_block_pad(ctx, 64, 1, nblocks=2)
-    assert wide.shape == (34,) and wide[12] == 1 and wide[16] == -(1 << 63) and not wide[17:].any()
+    one = tk.absorb_pad(8 + 4)
+    assert one.shape == (17,) and one[12] == 1 and one[16] == -(1 << 63)
     with pytest.raises(ValueError):
-        fp._round_pad(ctx, 4)
+        tk.round_step(ctx, torch.zeros((4, ctx.num_words + 1), dtype=torch.int32),
+                      torch.zeros(25, dtype=torch.int64))

@@ -75,6 +75,47 @@ def test_lanes_bound_ms():
         288, rl.point_double_cost(1 << 20)[1], H100).ms
 
 
+def test_transcript_bounds_in_nanoseconds():
+    """keccak_f and round_step at the paths' shapes: the whole card's bound is
+    nanoseconds (by operations), the one thread's least time microseconds
+    (PERF.md section 6's second table). A Keccak round is 180 instructions
+    with every three-input logical function one LOP3 a 32-bit half."""
+    assert (rl.KECCAK_ROUND_OPS, rl.KECCAK_F_OPS) == (180, 4320)
+    rows = {  # cost, bound ns, one thread's least us
+        "keccak_f, one state": (rl.keccak_f_cost(1), 0.2583, 2.1818),
+        "round_step, sumcheck": (rl.round_step_cost(2), 0.3070, 2.5939),
+        "round_step, GKR": (rl.round_step_cost(3), 0.3396, 2.8687),
+        "round_step, GKR first, two blocks": (rl.round_step_cost(3, 16, 2, True), 0.5978, 5.0505),
+    }
+    for cost, ns, us in rows.values():
+        b = rl.bound(*cost, H100)
+        assert (round(b.ms * 1e6, 4), b.by) == (ns, "operations")
+        assert round(rl.one_thread_ms(cost[1]) * 1e3, 4) == us
+    assert rl.round_step_cost(2) == (400, 3 * 272 + 4320)
+    assert rl.lanes_bound_ms("keccak_f", 33, 0, H100) == rl.bound(*rl.keccak_f_cost(33), H100).ms
+
+
+def test_round_step_priced_by_kind():
+    """A first round's blocks are what its content needs at the least: a plain
+    sumcheck's tail of 8 lanes and two sums fit one block, 9 lanes do not; a
+    GKR round's trimmed length is on the card, so its content is priced at
+    none. A path's rounds are priced each at its own cost."""
+    assert [rl.round_step_blocks(2, t, True) for t in (0, 8, 9, 16)] == [1, 1, 2, 2]
+    assert [rl.round_step_blocks(3, t, True) for t in (0, 16)] == [1, 1]
+    assert rl.round_step_blocks(2, 4, False) == rl.round_step_blocks(3, 4, False) == 1
+    assert rl.round_step_cost(2, 9, first=True) == rl.round_step_cost(2, 9, 2, True)
+    rounds = {(2, 9, True): 1, (2, 4, False): 19, (3, 6, True): 2, (3, 4, False): 40}
+    nbytes = (rl.round_step_cost(2, 9, first=True)[0] + 19 * rl.round_step_cost(2)[0]
+              + 2 * rl.round_step_cost(3, 6, first=True)[0] + 40 * rl.round_step_cost(3)[0])
+    ops = (rl.round_step_cost(2, 9, 2)[1] + 19 * rl.round_step_cost(2)[1]
+           + 42 * rl.round_step_cost(3)[1])
+    assert rl.lanes_bound_ms("round_step", 62, 0, H100, rounds) == rl.bound(nbytes, ops, H100).ms
+    with pytest.raises(ValueError):
+        rl.lanes_bound_ms("round_step", 61, 0, H100, rounds)
+    with pytest.raises(ValueError):
+        rl.lanes_bound_ms("round_step", 62, 0, H100)
+
+
 def test_one_peak_entry_and_none_without_a_card():
     assert list(rl.PEAKS) == ["NVIDIA H100 80GB HBM3"]
     assert H100.bytes_per_s == 3.35e12 and H100.int32_mad_per_s == 132 * 64 * 1.98e9

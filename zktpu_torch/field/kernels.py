@@ -20,7 +20,8 @@ no fallback and no switch. The kernels take every power-of-two size from 2 up.
 Lazy rows: the three summing kernels leave the modular reduction to the caller.
 They return exact *integer* sums of the Montgomery words as ``W + EXTRA_WORDS``
 clean 32-bit words per row (the same integers as the reference's ``N + 2`` digit
-rows); ``lazy_rows_to_ints`` or ``sumcheck.fused._canonicalize_rows`` reduce them.
+rows); ``lazy_rows_to_ints`` or ``hash.kernels.canonical_rows_plain`` reduce them
+(on the card the fused provers' ``round_step`` kernel does).
 
 ``launches`` counts, per kernel, the wrapper calls that launched it, and
 ``lanes`` the entries those launches covered (table rows; for ``fold`` all rows
@@ -406,7 +407,7 @@ def _launch_fold_and_halves(ctx: FieldCtx, table, r, blocks: int | None = None):
 def gkr_round(ctx: FieldCtx, tables):
     """Lazy rows (3, W+1) of the degree-2 GKR round evaluations y_0, y_1, y_2 of
     a (2, 2, size, W) stack (product, factor, entry, word); reduce with
-    ``lazy_rows_to_ints`` or ``sumcheck.fused._canonicalize_rows``."""
+    ``lazy_rows_to_ints`` or ``hash.kernels.canonical_rows_plain``."""
     _check(ctx, "gkr_round tables", tables)
     if tables.dim() != 4 or tuple(tables.shape[:2]) != (2, 2):
         raise ValueError("gkr_round: expected a (2, 2, size, W) stack")

@@ -3,19 +3,20 @@
 The counterpart of ``zktpu/gkr/fused_lazy.py``. The host-loop lazy prover
 (``gkr.lazy.gkr_prove_lazy``) pays one device->host trip per round for the
 transcript squeeze. Here each sumcheck PHASE keeps the Keccak sponge on the
-device (the machinery of ``sumcheck.fused``), so the host uploads the sponge
-state, queues every round, and fetches the phase's coefficient rows once:
+device, so the host uploads the sponge state and its pending tail (one copy),
+queues every round, and fetches the phase's coefficient rows once:
 
   * the phase's composed tables live as one contiguous (2, 2, size, W) product
     stack: [[F, G], [H, 1]] for phase 1 and the ``_phase2_tables_kernel`` layout
     for phase 2;
-  * per round: the ``gkr_round`` kernel gives y_0, y_1, y_2 as exact lazy rows,
-    the device interpolates them to coefficients (c0 = y0,
-    c2 = (y0 - 2 y1 + y2)/2, c1 = y1 - y0 - c2), absorbs one padded Keccak block
-    (digest || coefficients), and the ``fold`` kernel folds the whole stack at
-    the squeezed challenge, which never visits the host.
+  * per round: the ``gkr_round`` kernel gives y_0, y_1, y_2 as exact lazy rows;
+    one ``round_step`` launch (``hash.kernels``) takes them to canonical
+    coefficients (c0 = y0, c2 = (y0 - 2 y1 + y2)/2, c1 = y1 - y0 - c2), absorbs
+    digest || the trimmed coefficients and gives the next challenge; the
+    ``fold`` kernel folds the whole stack at that challenge, which never visits
+    the host.
 
-Every round goes through the same two kernels, whatever the table's size. The
+Every round goes through the same three kernels, whatever the table's size. The
 reference switches, at and below 2^14 entries, to a bit-reversed zero-padded
 fixed-shape scan (``_scan_phase_fixed``, ``_bitrev_pad``, ``_big_round``,
 ``SCAN_SIZE``); that exists only to cap the number of per-shape compilations of
@@ -25,14 +26,10 @@ its kernels take every power-of-two size from 2.
 Transcript bytes are identical to the host path INCLUDING the trim: the
 reference absorbs ``interpolate``'s trailing-zero-trimmed coefficient vector,
 and a vanishing quadratic coefficient is structural for some layers (all-ADD
-wiring), not rare. Coefficients past the trim are zero, so the block's content
-does not depend on the trimmed length k; only the place of the padding does. It
-is chosen on the device, by indexing a (4, lanes) table of the four static
-layouts with k, so no round asks the host anything. The first round of a phase
-also absorbs the host transcript's pending tail, and tail + 32k bytes may or may
-not cross a 136-byte block: then both block counts are computed and the state
-after the right one is selected on the device, at the cost of one spare
-permutation in that round.
+wiring), not rare. ``round_step`` finds the trimmed length on the card, so no
+round asks the host anything; in the first round of a phase, which also absorbs
+the host transcript's pending tail, that length decides whether the content
+takes one block or two.
 
 After each device phase the host transcript replays the fetched coefficient
 appends/squeezes (a few Keccak blocks), so the surrounding GKR protocol code
@@ -41,18 +38,14 @@ appends/squeezes (a few Keccak blocks), so the surrounding GKR protocol code
 
 from __future__ import annotations
 
-import functools
-
 import numpy as np
 import torch
 
 from ..field import kernels as fk
-from ..field import torch_backend as fb
-from ..field.spec import FieldSpec
 from ..field.torch_backend import FieldCtx
 from ..hash import keccak_device as kd
+from ..hash import kernels as tk
 from ..poly.univariate import UnivariatePoly
-from ..sumcheck import fused as fp
 from ..sumcheck.protocol import GkrSumcheckProof, _encode
 from ..transcript import Transcript
 from . import lazy as lazy_mod
@@ -61,102 +54,36 @@ from . import lazy as lazy_mod
 NUM_COEFFS = 3
 
 
-@functools.lru_cache(maxsize=None)
-def _inv2_mont_np(spec: FieldSpec, num_words: int) -> np.ndarray:
-    """to_mont(1/2) as host words: mont_mul(x, this) == x/2 for canonical x."""
-    p = spec.modulus
-    value = pow(2, -1, p) * (spec.R % p) % p
-    return np.frombuffer(value.to_bytes(4 * num_words, "little"), dtype="<u4").copy()
-
-
 class _PhaseConsts:
-    """What one phase uploads before its first kernel: the sponge state, the
-    pending tail, the four padding layouts of each kind of absorb, the block
-    count of the first absorb per trimmed length, and 1/2."""
+    """What one phase uploads before its first kernel, in one copy: the host
+    sponge's state (25 lanes) and its pending tail (whole lanes, under a
+    block), as two views of one tensor."""
 
     def __init__(self, ctx: FieldCtx, state_lanes: np.ndarray, tail_lanes: np.ndarray):
-        tail_len = 8 * tail_lanes.shape[0]
-        byte_len = ctx.spec.byte_len
-        counts = [(tail_len + k * byte_len) // kd.RATE + 1 for k in range(NUM_COEFFS + 1)]
-        #: host ints: the first absorb's block count is the same for every k
-        #: unless these differ
-        self.min_blocks, self.max_blocks = counts[0], counts[-1]
-
-        def dev(arr):
-            return torch.from_numpy(np.ascontiguousarray(arr)).to(ctx.device)
-
-        self.state = dev(state_lanes)
-        self.tail = dev(tail_lanes)
-        self.tail_pads = dev(np.stack([
-            fp._tail_block_pad(ctx, tail_len, k, self.max_blocks) for k in range(NUM_COEFFS + 1)
-        ]))
-        self.round_pads = dev(np.stack([fp._round_pad(ctx, k) for k in range(NUM_COEFFS + 1)]))
-        self.last_block = dev(np.asarray(counts, np.int64) - 1)
-        self.trim_index = dev(np.arange(1, NUM_COEFFS + 1, dtype=np.int64))
-        self.inv2 = dev(_inv2_mont_np(ctx.spec, ctx.num_words).view(np.int32))
-
-
-def _interp3(ctx: FieldCtx, ys_canon, inv2):
-    """Canonical (3, W) y-values at t=0,1,2 -> canonical (3, W) coefficients
-    [c0, c1, c2] of the unique degree-<=2 interpolant."""
-    y0, y1, y2 = ys_canon[0], ys_canon[1], ys_canon[2]
-    c2 = fk.mont_mul(
-        ctx, fb.sub(ctx, fb.sub(ctx, fb.add(ctx, y0, y2), y1), y1), inv2
-    )
-    c1 = fb.sub(ctx, fb.sub(ctx, y1, y0), c2)
-    return torch.stack([y0, c1, c2])
-
-
-def _trim_len(coeffs, trim_index):
-    """Trimmed length (0..3) of canonical (3, W) coefficient rows, as a (1,)
-    int64 tensor on the device: highest index with a nonzero row, plus one."""
-    nonzero = (coeffs != 0).any(dim=1)
-    return torch.where(nonzero, trim_index, 0).max().reshape(1)
-
-
-def _squeeze_trim(ctx: FieldCtx, digest, coeffs, consts: _PhaseConsts):
-    """Squeeze-round absorb of digest || trimmed coefficients: the padding
-    layout is picked by the trimmed length on the device."""
-    pad = consts.round_pads.index_select(0, _trim_len(coeffs, consts.trim_index))[0]
-    return fp._squeeze_round(ctx, digest, coeffs, pad)
-
-
-def _absorb_tail_trim(ctx: FieldCtx, coeffs, consts: _PhaseConsts):
-    """First absorb of a phase: prefix tail || trimmed coefficients."""
-    k = _trim_len(coeffs, consts.trim_index)
-    pad = consts.tail_pads.index_select(0, k)[0]
-    content = fp._tail_content(ctx, consts.tail, coeffs, pad)
-    state = consts.state
-    states = []
-    for b in range(consts.max_blocks):
-        state = kd.absorb_block(state, content[kd.RATE_LANES * b : kd.RATE_LANES * (b + 1)])
-        states.append(state)
-    if consts.min_blocks == consts.max_blocks:
-        return state
-    # the trimmed content may end a block earlier: take the state after its last
-    return torch.stack(states).index_select(0, consts.last_block.index_select(0, k))[0]
+        if tail_lanes.shape[0] > kd.RATE_LANES - 1:
+            raise ValueError("a pending tail is under one block")
+        packed = torch.from_numpy(np.concatenate([state_lanes, tail_lanes])).to(ctx.device)
+        self.state = packed[: tk.STATE_LANES]
+        self.tail = packed[tk.STATE_LANES :]
 
 
 def _device_phase(ctx: FieldCtx, tables, consts: _PhaseConsts):
     """All rounds of one phase on the device, nothing fetched and nothing
-    uploaded: ``consts`` holds every upload.
+    uploaded: ``consts`` holds every upload. A round is ``gkr_round`` (and its
+    ``finish_rows``), ``round_step`` (coefficients into the round's slot, the
+    absorb, the next challenge) and ``fold``.
 
     Returns ((nb, 3, W) canonical coefficient rows, (W,) the folded [0, 0]
     table's one entry -- w(r_b) after phase 1).
     """
-    outs = []
-    digest = None
-    for k in range(tables.shape[2].bit_length() - 1):
+    nb = tables.shape[2].bit_length() - 1
+    out = torch.empty((nb, NUM_COEFFS, ctx.num_words), dtype=torch.int32, device=ctx.device)
+    state = consts.state
+    for k in range(nb):
         rows = fk.gkr_round(ctx, tables)
-        coeffs = _interp3(ctx, fp._canonicalize_rows(ctx, rows), consts.inv2)
-        outs.append(coeffs)
-        if k == 0:
-            state = _absorb_tail_trim(ctx, coeffs, consts)
-        else:
-            state = _squeeze_trim(ctx, digest, coeffs, consts)
-        digest = state[:4]
-        tables = fk.fold(ctx, tables, fp._digest_to_mont(ctx, digest))
-    return torch.stack(outs), tables[0, 0, 0]
+        _, state, r_mont = tk.round_step(ctx, rows, state, consts.tail if k == 0 else None, out[k])
+        tables = fk.fold(ctx, tables, r_mont)
+    return out, tables[0, 0, 0]
 
 
 def _run_phase(ctx: FieldCtx, transcript: Transcript, tables):

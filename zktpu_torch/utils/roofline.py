@@ -4,8 +4,11 @@ The counterpart of the JAX package's ``utils/roofline.py``, for the card:
 
   * ``PEAKS`` / ``chip_peaks``: the card's memory rate and 32-bit integer
     multiply-add rate, by ``torch.cuda.get_device_name``;
-  * cost models of the nine kernels: (bytes moved, 32-bit multiply-adds) of
-    one call, each input read once and each output written once;
+  * cost models of the eleven kernels: (bytes moved, 32-bit multiply-adds, or
+    for Keccak 32-bit logical instructions and funnel shifts) of one call,
+    each input read once and each output written once; ``one_thread_ms``, the
+    least time of a one-thread kernel's operations (its warp issues one
+    instruction a cycle);
   * ``bound``: the least time the card could take for such work, the larger of
     bytes over the memory rate and operations over the integer rate;
   * ``time_events`` / ``measure``: CUDA-event timing, and a ``KernelProfile``
@@ -38,11 +41,13 @@ class Peaks:
     int32_mad_per_s: float
 
 
+#: the H100's boost clock (Hz)
+H100_CLOCK = 1.98e9
 #: peaks by device name. H100 SXM: memory 3.35 TB/s (data sheet); integer 132
 #: SMs x 64 INT32 lanes x 1.98 GHz boost = 16.7e12 32-bit multiply-adds a second.
 #: No other card is listed: a bound against a guessed peak would read as a
 #: measurement.
-PEAKS = {H100: Peaks(bytes_per_s=3.35e12, int32_mad_per_s=132 * 64 * 1.98e9)}
+PEAKS = {H100: Peaks(bytes_per_s=3.35e12, int32_mad_per_s=132 * 64 * H100_CLOCK)}
 
 
 def chip_peaks(device=None) -> Peaks:
@@ -195,15 +200,84 @@ def ntt_cost(log_n: int) -> list:
                                        for s in range(first + 1, log_n + 1)]
 
 
-def lanes_bound_ms(name: str, lanes: int, doublings: int, peaks: Peaks | None = None) -> float:
+# ----------------------------------------------------------------------
+# the transcript kernels (``hash/kernels.py``): one thread a state or a round
+# ----------------------------------------------------------------------
+
+_LANE_BYTES = 8
+_STATE_BYTES = 25 * _LANE_BYTES
+#: the least 32-bit instructions of one Keccak-f[1600] round. A 64-bit lane is
+#: two 32-bit halves, every logical function of up to three inputs is one LOP3
+#: a half, a 64-bit rotation two funnel shifts (SHF) and pi only renames
+#: registers: theta's five column parities (two LOP3 a half, 20), the parities
+#: rotated by one (10 SHF), each lane xored with both neighbouring parities (one
+#: LOP3 a half, 50); rho's 24 rotations (none by 0 or 32, 48 SHF); chi's
+#: a ^ (~b & c) (one LOP3 a half, 50); iota's 64-bit constant (2). 180 in all.
+KECCAK_ROUND_OPS = 20 + 10 + 50 + 48 + 50 + 2
+#: ... and of the 24 rounds of the permutation: 4,320
+KECCAK_F_OPS = 24 * KECCAK_ROUND_OPS
+
+
+def keccak_f_cost(states: int):
+    """Read and write each 25-lane state once; ``KECCAK_F_OPS`` each."""
+    return 2 * _STATE_BYTES * states, KECCAK_F_OPS * states
+
+
+def round_step_blocks(k: int, prefix_lanes: int, first: bool) -> int:
+    """The permutations a round needs at the least: its content (the prefix,
+    then the round's elements, 4 lanes each) and its padding over 17-lane
+    blocks. A plain sumcheck round absorbs both its sums; a GKR round's trimmed
+    length (0-3) is found on the card, so its content is priced at none. A
+    steady round's prefix, the 4-lane digest, leaves it one block."""
+    elements = k if k == 2 else 0
+    return (prefix_lanes + 4 * elements) // 17 + 1 if first else 1
+
+
+def round_step_cost(k: int, prefix_lanes: int = 4, blocks: int | None = None,
+                    first: bool = False):
+    """One ``round_step`` over k lazy rows (2: plain sumcheck; 3: GKR): read
+    the rows, the prefix (the last digest, or a pending tail) and, in a first
+    round, the host's state; write the canonical rows, the state and the
+    challenge. Products: k canonical values, the interpolation's division by
+    two (k = 3), the challenge's Montgomery form; ``blocks`` permutations
+    (None: what ``round_step_blocks`` says the round needs at the least)."""
+    w = 8
+    if blocks is None:
+        blocks = round_step_blocks(k, prefix_lanes, first)
+    nbytes = (k * (w + 1) * 4 + prefix_lanes * _LANE_BYTES + (_STATE_BYTES if first else 0)
+              + k * elem_bytes(w) + _STATE_BYTES + elem_bytes(w))
+    products = k + (1 if k == 3 else 0) + 1
+    return nbytes, products * cios_lane_ops(w) + blocks * KECCAK_F_OPS
+
+
+def one_thread_ms(ops: float) -> float:
+    """The least time of ``ops`` 32-bit operations on ONE thread: its warp
+    issues at most one instruction a cycle. This, not ``bound`` (the whole
+    card's rate, nanoseconds for a state or a round), is what a one-thread
+    kernel's dependent chain costs at the least."""
+    return ops / H100_CLOCK * 1e3
+
+
+def lanes_bound_ms(name: str, lanes: int, doublings: int, peaks: Peaks | None = None,
+                   rounds: dict | None = None) -> float:
     """The least time of ``lanes`` lanes of a kernel, as in its row's bound:
     the five field kernels at W = 8 (a path's few 12-word ``mont_mul`` lanes
     priced so too), ``point_add`` on finite lanes, ``point_double``'s bytes by
     lanes and products by ``doublings`` (lanes x times), the NTT kernels at
-    the 2^10 tile with no twiddle reads."""
+    the 2^10 tile with no twiddle reads, ``keccak_f`` by states, ``round_step``
+    by ``rounds`` (``hash.kernels.rounds``: launches by rows, prefix lanes and
+    first round), each round at its own cost."""
     if lanes == 0:
         return 0.0
-    if name == "point_double":
+    if name == "keccak_f":
+        nbytes, ops = keccak_f_cost(lanes)
+    elif name == "round_step":
+        if rounds is None or sum(rounds.values()) != lanes:
+            raise ValueError(f"round_step: {lanes} rounds, priced by kind {rounds}")
+        costs = [[n * v for v in round_step_cost(k, prefix, first=first)]
+                 for (k, prefix, first), n in rounds.items()]
+        nbytes, ops = (sum(c[i] for c in costs) for i in range(2))
+    elif name == "point_double":
         nbytes, ops = point_double_cost(lanes)[0], point_double_cost(doublings)[1]
     elif name == "point_add":
         nbytes, ops = point_add_cost(lanes)
