@@ -45,9 +45,10 @@ started together), then
      2^20-input circuit with its multilinear-KZG input proof
      (``gkr.protocol.prove`` -> ``gkr.protocol.verify``: the SRS comb, the
      Pippenger MSMs of the commitment and of the 2 x 20 quotients, the host's
-     pairings), reads the launch counts of all seven kernels (a Horner window
-     is one point_double launch of c doublings: 939 in all), and refuses a
-     tampered quotient point, commitment and opened evaluation;
+     pairings), reads the launch counts of the kernels (a compaction round is
+     one run_scan and one compact_add launch, 171 in all; a Horner chain one
+     horner launch, 21; no point_double), and refuses a tampered quotient
+     point, commitment and opened evaluation;
   9. ties the input proof without a reference run: the taus are known, so the
      commitment, every quotient commitment and some SRS entries must be the
      host's scalar multiples of G1; the comb equals the ladder and Pippenger the
@@ -78,11 +79,14 @@ started together), then
 Before (14), the profiler counts the device kernels of phase 4's fused prove
 (at most 3 a round + 10) and of one of phase 7's fused GKR rounds (at most 5).
 Then (14) each of the four paths runs once more under ``torch.profiler``, and
-the eleven kernels are ranked by their device time on the paths less the bound
-of the lanes they covered there; on each path the device runs one kernel a
-launch of ``halves_sums``, ``fold_and_halves``, ``round_step`` and
-``keccak_f``, a ``round_step`` a round, no ``keccak_f``, and a ``finish_rows``
-only after ``gkr_round`` (none on the sumcheck path), or the script fails. Last,
+the fourteen kernels are ranked by their device time on the paths less the
+bound of the lanes they covered there; on each path the device runs one kernel
+a launch of ``halves_sums``, ``fold_and_halves``, ``round_step``, ``keccak_f``,
+``compact_add`` and ``horner``, three of ``run_scan``, a ``round_step`` a round,
+no ``keccak_f``, a ``finish_rows`` only after ``gkr_round`` (none on the
+sumcheck path), and no device kernel of ``torch.cummax`` or
+``torch.searchsorted`` (named as a profile of each op on the card shows them),
+or the script fails. Last,
 
  15. proof bytes and the field oracle: ``mont_mul``, ``fold``, ``halves_sums``,
      ``fold_and_halves``, ``pow_static`` and ``inverse`` on the card against
@@ -104,12 +108,14 @@ only after ``gkr_round`` (none on the sumcheck path), or the script fails. Last,
      slots of the one card and on the mesh of every card present:
      ``sumcheck_prove_sharded`` of phase 3's table equals phase 3's proof and
      digest; ``ntt_sharded`` forward and inverse at 2^20 and 2^22 equals phase
-     12's outputs and inputs; ``msm_pippenger_sharded`` of the 2^20-point
-     commitment equals phase 8's commitment; on the 4-slot mesh
+     12's outputs and inputs; ``msm_pippenger_sharded`` and the ladder
+     ``msm_sharded`` (the path that runs ``point_double``) of the 2^20-point
+     commitment equal phase 8's commitment; on the 4-slot mesh
      ``gkr.prove(mesh=...)`` of phase 8's circuit encodes to phase 8's bytes
-     (phase 15's blob); ``dryrun_multichip`` passes; the launches of each
-     kernel in the phase and each sharded path's warm time beside the single
-     device's.
+     (phase 15's blob), and once more under the profiler it runs no cummax or
+     searchsorted kernel and one device kernel a launch of the MSM kernels;
+     ``dryrun_multichip`` passes; the launches of each kernel in the phase and
+     each sharded path's warm time beside the single device's.
  17. the transcript kernels: ``keccak_f`` against its plain version on 1, 33
      and 4096 random states, ``round_step`` on 2 and 3 lazy rows (trimmed
      lengths 0-3, steady rounds and first rounds of one and two blocks, low
@@ -117,11 +123,22 @@ only after ``gkr_round`` (none on the sumcheck path), or the script fails. Last,
      word for word; each one's device time a launch at the paths' shapes (by
      the profiler's clock) beside its plain version, its bound and one
      thread's least time.
+ 18. the MSM kernels: ``run_scan`` against its plain version at 1, 2, 3 and
+     from 127 to 2^24 keys (random runs, all equal, all distinct, runs that
+     cross the scan's tiles and blocks, MAXKEY tails; ``l_next`` below, at and
+     above the survivor count), ``compact_add`` up to 2^20 keys with equal,
+     opposite and infinite neighbours planted, ``horner`` at 1, 2 and 4
+     segments and c = 4, 8 (the top 8 windows), 16 (all) on the window sums
+     of real MSMs with infinities mixed in, word for word; then on the commitment MSM of phase
+     8, its first compaction round (2^24 keys) and a steady one, and its
+     Horner chain: each kernel against its plain version and the eager chain
+     it replaced, with their times (CUDA events) beside the bounds, and the
+     quotient steps' Horner shapes.
 
 The bounds are ``zktpu_torch/utils/roofline.py``'s, at the peaks it lists for
 the card (it raises on a card it does not list). Any failed comparison exits
 non-zero. The last line of the output is one JSON object, ``{"ok": true,
-"device": {...}}``; the line before it lists the eleven kernels with their
+"device": {...}}``; the line before it lists the fourteen kernels with their
 launch counts (the four paths and phases 15 and 16), errors, times and bounds.
 The fused provers' transcript is ``round_step``'s: phases 3 and 5 count a
 launch a round, and no ``mont_mul`` or permutation of their own.
@@ -161,6 +178,7 @@ from zktpu_torch.hash import keccak as hk
 from zktpu_torch.hash import keccak_device as kd
 from zktpu_torch.hash import kernels as tk
 from zktpu_torch.msm import fixed_base, generator_comb_mul, msm_bitsplit
+from zktpu_torch.msm import kernels as mk
 from zktpu_torch.msm import pippenger as pp
 from zktpu_torch.ntt import ntt as tn
 from zktpu_torch.ntt import ntt_kernels as nk
@@ -225,9 +243,16 @@ HORNER_TIMES = (1, 4, 8, 16)
 #: chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700 W, PERF.md section 6)
 POINT_MS_BEFORE = {("point_add", 1 << 16): 0.1848, ("point_add", 1 << 20): 1.4642,
                    ("point_double", 1 << 16): 0.0478, ("point_double", 1 << 20): 0.5428}
-#: point_add launches of the 2^20-input gkr.prove (the compaction's round
-#: count follows the data, which is fixed by the seeds)
-KZG_POINT_ADDS_2E20 = 1407
+#: point_add launches of the 2^20-input gkr.prove: the comb's 31, the basis
+#: chain's 20 folds, and the bucket reductions' Kogge-Stone and pair steps,
+#: 2 (c - 1) a Pippenger call (``kzg_expected_msm_launches``). Before the
+#: compaction and the window combine had their kernels: 1,407, of which 939
+#: Horner additions and 171 compaction and densifying rounds
+KZG_POINT_ADDS_2E20 = 297
+#: run_scan and compact_add launches of the same prove: its compaction and
+#: densifying rounds, one of each a round (the round count follows the data,
+#: which is fixed by the seeds)
+KZG_COMPACT_ROUNDS_2E20 = 171
 TIME_SIZES = (1 << 20, 1 << 24)
 TIMED_RUNS = 10
 
@@ -272,11 +297,16 @@ KERNEL_SOURCE = "zktpu_torch/csrc/sumcheck_kernels.cu"
 POINT_KERNEL_SOURCE = "zktpu_torch/csrc/point_kernels.cu"
 NTT_KERNEL_SOURCE = "zktpu_torch/csrc/ntt_kernels.cu"
 TRANSCRIPT_KERNEL_SOURCE = "zktpu_torch/csrc/transcript_kernels.cu"
+MSM_KERNEL_SOURCE = "zktpu_torch/csrc/msm_kernels.cu"
 #: the kernel sources, one nvcc each, all started together
-CUDA_STEMS = ("sumcheck_kernels", "point_kernels", "ntt_kernels", "transcript_kernels")
-#: the TPU kernel each replaces; the transcript kernels replace zktpu's device
-#: programs (XLA, not Pallas): keccak_f the permutation, round_step the round of
-#: gkr/fused_lazy.py:_big_round and of sumcheck/fused.py:_device_prove (:192)
+CUDA_STEMS = ("sumcheck_kernels", "point_kernels", "ntt_kernels", "transcript_kernels",
+              "msm_kernels")
+#: the TPU kernel each replaces; the transcript and MSM kernels replace zktpu's
+#: device programs (XLA, not Pallas): keccak_f the permutation, round_step the
+#: round of gkr/fused_lazy.py:_big_round and of sumcheck/fused.py:_device_prove
+#: (:192); run_scan the scan of msm/pippenger.py:_compact_round and _max_run
+#: (:295), compact_add the rest of that round (its gathers, point_add_px at :180
+#: and its selects), horner the window combine _horner_multi
 REPLACES = {
     "ntt_phase1": "zktpu/ntt/pallas_ntt.py:107",
     "ntt_stage": "zktpu/ntt/pallas_ntt.py:154",
@@ -289,6 +319,9 @@ REPLACES = {
     "gkr_round": "zktpu/field/pallas_kernels.py:292",
     "keccak_f": "zktpu/hash/keccak_device.py:78",
     "round_step": "zktpu/gkr/fused_lazy.py:215",
+    "run_scan": "zktpu/msm/pippenger.py:154",
+    "compact_add": "zktpu/msm/pippenger.py:180",
+    "horner": "zktpu/msm/pippenger.py:448",
 }
 #: launches the main path must make at 2^NUM_VARS. mont_mul: to_mont of the
 #: table, and the verifier's to_mont of the point and from_mont of the
@@ -1150,23 +1183,27 @@ def reset_all_launches() -> None:
     pk.reset_launches()
     nk.reset_launches()
     tk.reset_launches()
+    mk.reset_launches()
 
 
 def all_launches() -> dict[str, int]:
-    return {**fk.launches, **pk.launches, **nk.launches, **tk.launches}
+    return {**fk.launches, **pk.launches, **nk.launches, **tk.launches, **mk.launches}
 
 
-def kzg_expected_doublings(n: int) -> int:
-    """point_double launches of ``prove`` at 2^n inputs: every Pippenger call
-    makes one a window below the top one, 256/c - 1 (c the window it picked:
-    each launch doubles c times), and none elsewhere; the commitment is one
-    call over 2^n points, and step k of the two openings one batched call of two
-    segments over 2^(n-1-k). The comb's table is built before the path is
-    driven."""
-    doublings = 256 // pp.pick_window_bits(1 << n) - 1
-    for k in range(n):
-        doublings += 256 // pp.pick_window_bits_multi(2, 1 << (n - 1 - k)) - 1
-    return doublings
+def kzg_expected_msm_launches(n: int) -> dict[str, int]:
+    """The point kernels' and horner's launches of ``prove`` at 2^n inputs.
+    Its Pippenger calls: the commitment, one call over 2^n points, then step k
+    of the two openings, one batched call of two segments over 2^(n-1-k), each
+    at its window c. point_add: the comb's COMB_W - 1 additions, the basis
+    chain's n folds, and in each call the bucket reduction's Kogge-Stone and
+    pair steps over 2^(c-1) buckets, c - 1 of each (the compaction and
+    densifying rounds are compact_add's, the Horner chain horner's). horner:
+    one a call. point_double: none (the comb's table is built before the path
+    is driven)."""
+    windows = [pp.pick_window_bits(1 << n)] + [pp.pick_window_bits_multi(2, 1 << (n - 1 - k))
+                                               for k in range(n)]
+    return {"point_add": fixed_base.COMB_W - 1 + n + sum(2 * (c - 1) for c in windows),
+            "point_double": 0, "horner": len(windows)}
 
 
 def tampered(whole, **changes):
@@ -1205,16 +1242,17 @@ def phase_kzg_main_path(ctx, circuit, inputs, layers_launches):
     check(len(kzg.proof[0]) == len(kzg.proof[1]) == n, "wrong number of quotient points")
     check(all(hc.is_on_curve(pt, hc.B1) for pt in [kzg.commitment] + kzg.proof[0] + kzg.proof[1]),
           "a proof point is not on the curve")
-    want = kzg_expected_doublings(n)
-    check(prove_launches["point_double"] == want == launches["point_double"],
-          f"point_double launches {prove_launches['point_double']} != {want}")
-    # the comb's 31 additions, the n folds of the basis chain, and in each of the
-    # 1 + n Pippenger calls at least one compaction round, the densifying round
-    # and the Horner chain's additions; the compaction's round count follows the data
-    check(prove_launches["point_add"] >= 31 + n + (1 + n) * (2 + 256 // 16 - 1),
-          f"too few point_add launches: {prove_launches['point_add']}")
-    check(prove_launches["point_add"] == KZG_POINT_ADDS_2E20,
-          f"point_add launches {prove_launches['point_add']} != {KZG_POINT_ADDS_2E20}")
+    want = kzg_expected_msm_launches(n)
+    got = {name: prove_launches[name] for name in want}
+    check(got == want and launches["point_double"] == 0,
+          f"point kernel and horner launches {got} != {want}")
+    check(want["point_add"] == KZG_POINT_ADDS_2E20,
+          f"point_add launches {want['point_add']} != {KZG_POINT_ADDS_2E20}")
+    # every compaction round is one run_scan and one compact_add; each of the
+    # 1 + n Pippenger calls takes at least one and its densifying round
+    check(prove_launches["run_scan"] == prove_launches["compact_add"] == KZG_COMPACT_ROUNDS_2E20
+          >= 2 * (1 + n), f"run_scan and compact_add launches {prove_launches['run_scan']}, "
+          f"{prove_launches['compact_add']} != {KZG_COMPACT_ROUNDS_2E20}")
     walk = gkr_expected_launches(n)
     check(all(launches[name] >= walk[name] for name in walk),
           "the full proof launched the layer walk's kernels less often than the walk alone")
@@ -1299,14 +1337,16 @@ def phase_kzg_ties(ctx, inputs, proof, taus, layers_proved) -> None:
     weights = random_scalars(rng, lanes, ctx.device)
     bitsplit = dc.unpack_points(tuple(t[None] for t in msm_bitsplit(comb, weights)))
     for c in MSM_TIE_WINDOWS:
-        before = pk.launches["point_double"]
+        before = all_launches()
         got = pp.msm_pippenger(comb, weights, c)
-        check(pk.launches["point_double"] - before == 256 // c - 1,
-              f"Horner doubling launches at c={c}")
+        after = all_launches()
+        check(after["horner"] - before["horner"] == 1
+              and after["point_double"] == before["point_double"],
+              f"the window combine at c={c} is not one horner launch")
         check(dc.unpack_points(tuple(t[None] for t in got)) == bitsplit,
               f"Pippenger (c={c}) != bit-split at {lanes} points")
     say(f"  Pippenger (c in {MSM_TIE_WINDOWS}) == bit-split MSM at {lanes} points; "
-        "256/c - 1 doubling launches (of c doublings each) a call")
+        "one horner launch and no point_double a call")
 
     structure, digest_inputs = gkr_benchmark(KZG_DIGEST_INPUTS)
     small = gkr.prove(Circuit(ctx, structure), digest_inputs,
@@ -1611,14 +1651,59 @@ def phase_ntt_times(ctx, results) -> dict[int, dict[str, dict]]:
 
 
 def all_lanes() -> dict[str, int]:
-    return {**fk.lanes, **pk.lanes, **nk.lanes, **tk.lanes}
+    return {**fk.lanes, **pk.lanes, **nk.lanes, **tk.lanes, **mk.lanes}
+
+
+#: run_scan's three device kernels, one of each a launch
+SCAN_PASSES = ("run_scan_reduce", "run_scan_blocks", "run_scan_apply")
+#: what the device kernels of torch.cummax and torch.searchsorted have in their
+#: names (``scan_op_kernels`` checks it on the card's PyTorch)
+SCAN_OP_NEEDLES = {"cummax": "_with_indices", "searchsorted": "searchsorted"}
+
+
+def kernel_names_of(fn) -> dict[str, int]:
+    """The device kernels ``fn`` runs, by name, counted by the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names: dict[str, int] = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type().name == "CUDA":
+            names[e.name()] = names.get(e.name(), 0) + 1
+    return names
+
+
+def scan_op_kernels() -> None:
+    """``SCAN_OP_NEEDLES`` names the device kernels of torch.cummax and
+    torch.searchsorted on this card's PyTorch (on the keys and counts of a
+    compaction round: int64 positions, sorted int64 sums), so that a path
+    without such a kernel is one that runs neither op."""
+    x = torch.arange(1 << 16, device="cuda")
+    for op, fn in (("cummax", lambda: torch.cummax(x, dim=0)),
+                   ("searchsorted", lambda: torch.searchsorted(x, x[:100]))):
+        names = kernel_names_of(fn)
+        found = [name for name in names if SCAN_OP_NEEDLES[op] in name]
+        check(found, f"no device kernel of torch.{op} has {SCAN_OP_NEEDLES[op]!r} in its name: "
+              f"{sorted(names)}")
+        say(f"  torch.{op}'s device kernels: {found}")
+
+
+def scan_op_runs(kernel_names: dict[str, int]) -> dict[str, int]:
+    """Device kernels of torch.cummax and torch.searchsorted among a profile's."""
+    return {op: sum(n for name, n in kernel_names.items() if needle in name)
+            for op, needle in SCAN_OP_NEEDLES.items()}
 
 
 def profile_path(fn) -> dict:
     """Run ``fn`` once under torch.profiler (device activity only): its
     launches, lanes and point doublings by kernel, and the device milliseconds
     of each kernel, summed by the device function's name (``finish_rows``, the
-    second pass of the three summing kernels, apart)."""
+    second pass of the three summing kernels, and run_scan's three passes
+    apart; run_scan's time is its passes' sum), and the device kernels of
+    torch.cummax and torch.searchsorted that ran."""
     from torch.profiler import ProfilerActivity, profile
 
     reset_all_launches()
@@ -1628,22 +1713,38 @@ def profile_path(fn) -> dict:
         fn()
         torch.cuda.synchronize()
     t_run = time.time() - t0
-    names = fk.KERNEL_NAMES + pk.KERNEL_NAMES + nk.KERNEL_NAMES + tk.KERNEL_NAMES + ("finish_rows",)
+    names = (fk.KERNEL_NAMES + pk.KERNEL_NAMES + nk.KERNEL_NAMES + tk.KERNEL_NAMES
+             + mk.KERNEL_NAMES + ("finish_rows",) + SCAN_PASSES)
     device_ms = {name: 0.0 for name in names}
     device_n = {name: 0 for name in names}
     pattern = re.compile(r"\b(" + "|".join(names) + r")_kernel\b")
+    kernel_names: dict[str, int] = {}
     # the raw events, not key_averages(): a path launches up to some 600,000
     # kernels, and building the averaged tree takes minutes
     for e in prof.profiler.kineto_results.events():
         if e.device_type().name == "CUDA":
-            found = pattern.search(e.name())
+            name = e.name()
+            kernel_names[name] = kernel_names.get(name, 0) + 1
+            found = pattern.search(name)
             if found:
                 device_ms[found.group(1)] += e.duration_ns() / 1e6
                 device_n[found.group(1)] += 1
+    device_ms["run_scan"] = sum(device_ms[name] for name in SCAN_PASSES)
     return {"launches": all_launches(), "lanes": all_lanes(), "doublings": pk.doublings,
-            "rounds": dict(tk.rounds),
-            "device_ms": device_ms, "device_n": device_n, "seconds": t_run,
-            "total_s": time.time() - t0}
+            "rounds": dict(tk.rounds), "scan_slots": mk.scan_slots, "chains": dict(mk.chains),
+            "device_ms": device_ms, "device_n": device_n, "scan_ops": scan_op_runs(kernel_names),
+            "seconds": t_run, "total_s": time.time() - t0}
+
+
+def check_msm_launches(path: str, p: dict) -> None:
+    """compact_add and horner are one device kernel a wrapper launch, run_scan
+    one of each of its three passes; no cummax or searchsorted kernel runs."""
+    ran, launched = p["device_n"], p["launches"]
+    for name in ("compact_add", "horner") + SCAN_PASSES:
+        want = launched["run_scan" if name in SCAN_PASSES else name]
+        check(ran[name] == want, f"{path}: {ran[name]} {name} kernels ran for {want} launches")
+    check(not any(p["scan_ops"].values()),
+          f"{path} ran torch.cummax or torch.searchsorted kernels: {p['scan_ops']}")
 
 
 def check_one_launch(profiles: dict[str, dict]) -> None:
@@ -1653,7 +1754,9 @@ def check_one_launch(profiles: dict[str, dict]) -> None:
     wrapper's launches, so the sumcheck path (1 + 19 launches, no gkr_round)
     runs no finish_rows; each path's transcript is a round_step a round (a
     gkr_round a round on the GKR paths), and no path launches keccak_f (its
-    permutations run inside round_step)."""
+    permutations run inside round_step). The MSM kernels as
+    ``check_msm_launches`` says, and the KZG path's window combines are one
+    horner launch each, with no point_double."""
     one_launch = fk._ONE_LAUNCH + tk.KERNEL_NAMES
     for path, p in profiles.items():
         ran, launched = p["device_n"], p["launches"]
@@ -1667,27 +1770,38 @@ def check_one_launch(profiles: dict[str, dict]) -> None:
         rounds = NUM_VARS if path == "sumcheck" else launched["gkr_round"]
         check(launched["round_step"] == rounds,
               f"{path}: {launched['round_step']} round_step launches for {rounds} rounds")
+        check_msm_launches(path, p)
+    kzg = profiles["gkr_kzg"]
+    check(kzg["launches"]["horner"] == 1 + GKR_NUM_VARS and kzg["launches"]["point_double"] == 0
+          and kzg["launches"]["run_scan"] == KZG_COMPACT_ROUNDS_2E20,
+          f"profiled gkr.prove: horner, point_double, run_scan launches {kzg['launches']}")
     sumcheck = profiles["sumcheck"]
     for name in fk._ONE_LAUNCH + ("round_step",):
         check(sumcheck["launches"][name] == EXPECTED_LAUNCHES[name],
               f"profiled sumcheck: {sumcheck['launches'][name]} {name} launches")
     check(sumcheck["device_n"]["finish_rows"] == 0, "finish_rows ran on the sumcheck path")
-    say("  one device kernel a launch of halves_sums, fold_and_halves, round_step and keccak_f "
-        "on every path, finish_rows only after gkr_round: " + ", ".join(
+    say("  one device kernel a launch of halves_sums, fold_and_halves, round_step, keccak_f, "
+        "compact_add and horner on every path, three of run_scan, finish_rows only after "
+        "gkr_round, no cummax or searchsorted kernel: " + ", ".join(
             f"{path} {p['device_n']['halves_sums']} + {p['device_n']['fold_and_halves']}, "
-            f"round_step {p['device_n']['round_step']}, finish_rows {p['device_n']['finish_rows']}"
-            for path, p in profiles.items()))
+            f"round_step {p['device_n']['round_step']}, finish_rows {p['device_n']['finish_rows']}, "
+            f"run_scan passes {[p['device_n'][name] for name in SCAN_PASSES]}, compact_add "
+            f"{p['device_n']['compact_add']}, horner {p['device_n']['horner']}, "
+            f"scan ops {p['scan_ops']}" for path, p in profiles.items()))
 
 
 def print_ranking(kernels: list[dict], profiles: dict[str, dict]) -> list[dict]:
-    """The eleven kernels ranked by device ms on the four paths (one profiled run
+    """The fourteen kernels ranked by device ms on the four paths (one profiled run
     of each) less the bound of the lanes they covered there; then, for
     comparison, the earlier ranking (launches x (ms - bound_ms) at each row's
     size), which prices every launch at the row's width."""
-    rounds = {}  # round_step's launches by kind, each kind at its own cost
+    rounds, chains = {}, {}  # round_step's launches and horner's segments by kind
     for p in profiles.values():
         for kind, n in p["rounds"].items():
             rounds[kind] = rounds.get(kind, 0) + n
+        for kind, n in p["chains"].items():
+            chains[kind] = chains.get(kind, 0) + n
+    scan_slots = sum(p["scan_slots"] for p in profiles.values())
     rows = []
     for k in kernels:
         name = k["name"]
@@ -1695,12 +1809,13 @@ def print_ranking(kernels: list[dict], profiles: dict[str, dict]) -> list[dict]:
         lanes = sum(p["lanes"][name] for p in profiles.values())
         doublings = sum(p["doublings"] for p in profiles.values()) if name == "point_double" else 0
         device = sum(p["device_ms"][name] for p in profiles.values())
-        bound = roofline.lanes_bound_ms(name, lanes, doublings, rounds=rounds)
+        bound = roofline.lanes_bound_ms(name, lanes, doublings, rounds=rounds,
+                                        scan_slots=scan_slots, chains=chains)
         rows.append({"name": name, "launches": launches, "lanes": lanes, "device_ms": device,
                      "bound_ms": bound, "loss_ms": device - bound})
     rows.sort(key=lambda r: -r["loss_ms"])
     say("  kernels at real widths, by device ms on the paths - bound of their lanes "
-        "(point_add's bound counts every lane as finite):")
+        "(point_add's bound counts every lane as finite, compact_add's prices no addition):")
     for r in rows:
         say(f"    {r['name']}: {r['launches']} launches, {r['lanes']} lanes, {r['device_ms']:.3f} "
             f"device ms, bound {r['bound_ms']:.3f} ms, loss {r['loss_ms']:.3f} ms")
@@ -2026,8 +2141,12 @@ def mesh_commitment(mesh, gctx, inputs, taus, commitment):
     jac = pm.msm_pippenger_sharded(mesh, basis, scalars)
     check(dc.unpack_points(tuple(t[None] for t in jac))[0] == commitment,
           "msm_pippenger_sharded of the commitment differs from phase 8's")
-    say(f"  msm_pippenger_sharded of the 2^{GKR_NUM_VARS}-point commitment == phase 8's "
-        f"commitment (window {pp.pick_window_bits((1 << GKR_NUM_VARS) // mesh.size)} a slot)")
+    ladder, t_ladder = timed(lambda: pm.msm_sharded(mesh, basis, scalars))
+    check(dc.unpack_points(tuple(t[None] for t in ladder))[0] == commitment,
+          "msm_sharded (the ladder) of the commitment differs from phase 8's")
+    say(f"  msm_pippenger_sharded and msm_sharded (the double-and-add ladder, {t_ladder:.3f}s) of "
+        f"the 2^{GKR_NUM_VARS}-point commitment == phase 8's commitment (window "
+        f"{pp.pick_window_bits((1 << GKR_NUM_VARS) // mesh.size)} a slot)")
     return basis, scalars
 
 
@@ -2086,6 +2205,15 @@ def phase_mesh_paths(ctx, gctx, rctx, sum_proof, circuit, inputs, taus, gkr_blob
         say(f"  launches on the {label} mesh's paths: {got}")
         for name, v in got.items():
             launches[name] += v
+        if label == "4-slot":
+            # its sharded commitment and segment-sharded quotient MSMs once more,
+            # under the profiler (not counted above)
+            prof = profile_path(lambda: gkr.prove(circuit, inputs, taus=taus, mesh=mesh))
+            check_msm_launches("gkr.prove(mesh=...)", prof)
+            say(f"  gkr.prove(mesh=...) under the profiler: run_scan {prof['launches']['run_scan']}, "
+                f"compact_add {prof['launches']['compact_add']}, horner "
+                f"{prof['launches']['horner']} launches, one device kernel each (run_scan three); "
+                f"cummax and searchsorted kernels {prof['scan_ops']}")
         mesh_times(mesh, ctx, rctx, poly, ntt_outputs, basis, scalars)
         del poly, basis, scalars
         torch.cuda.empty_cache()
@@ -2238,6 +2366,290 @@ def phase_transcript_kernels() -> tuple[dict[str, int], dict[str, dict]]:
 
 
 # ----------------------------------------------------------------------
+# phase 18: the MSM kernels
+# ----------------------------------------------------------------------
+
+#: run_scan against its plain version at these key counts (compact_add up to
+#: 2^20 on random points, and at 2^24 on the commitment's first round)
+SCAN_CHECK_WIDTHS = (1, 2, 3, 127, 128, 129, 4095, 4096, 4097, 1 << 16, (1 << 16) + 1, 1 << 20,
+                     1 << 24)
+COMPACT_CHECK_TOP = 1 << 20
+#: run lengths of the key set whose runs cross the scan's tiles (16 keys) and
+#: blocks (4096 keys)
+CROSSING_RUNS = (1, 2, 3, 15, 16, 17, 31, 33, 4095, 4096, 4097, 8193)
+#: horner against its plain version: segments, window widths, points a segment;
+#: below c = 16 over the most significant windows only (a plain chain is some
+#: 250 doublings of about 0.1 s each on the card, launch-bound; the whole
+#: chains at c = 4 and 8 are held against the eager chain in the timings)
+HORNER_CHECK_SEGMENTS = (1, 2, 4)
+HORNER_CHECK_WINDOWS = (4, 8, 16)
+HORNER_CHECK_POINTS = 1 << 10
+HORNER_CHECK_TOP_WINDOWS = 8
+#: the quotient steps' Horner chains, timed beside the eager chain after the
+#: commitment's: (segments, c)
+HORNER_TIME_SHAPES = ((2, 16), (2, 8), (2, 4))
+
+
+def scan_key_sets(rng, n: int, device) -> dict[str, torch.Tensor]:
+    """Sorted int32 keys of n entries on ``device``: random runs, all equal, all
+    distinct, runs whose lengths cross the scan's tiles and blocks, and a
+    MAXKEY tail."""
+    lengths = rng.choice(CROSSING_RUNS, size=n)
+    lengths = lengths[: int(np.searchsorted(np.cumsum(lengths), n)) + 1]
+    runs = np.repeat(np.arange(lengths.shape[0]), lengths)
+    tail = n // 4
+    sets = {
+        "random runs": np.sort(rng.integers(0, max(1, n // 8), size=n)),
+        "all equal": np.full(n, 7),
+        "all distinct": np.arange(n),
+        "runs across tiles and blocks": runs[:n],
+        "MAXKEY tail": np.concatenate([np.sort(rng.integers(0, max(1, n // 8), size=n - tail)),
+                                       np.full(tail, mk.MAXKEY)]),
+    }
+    return {name: torch.from_numpy(v.astype(np.int32)).to(device) for name, v in sets.items()}
+
+
+def eager_compact_round(key, pt, l_next: int):
+    """The compaction round as the port ran it before its kernels: a cummax, a
+    cumsum, a searchsorted, two point gathers, a point_add launch at full width
+    and two selects. Timed beside run_scan + compact_add."""
+    L = key.shape[0]
+    is_left = (mk._run_rank(key) & 1) == 0
+    next_same = torch.zeros(L, dtype=torch.bool, device=key.device)
+    next_same[:-1] = key[1:] == key[:-1]
+    has_partner = is_left & next_same
+    csum = torch.cumsum(is_left, dim=0)
+    wanted = torch.arange(1, l_next + 1, dtype=torch.int64, device=key.device)
+    srcpos = torch.searchsorted(csum, wanted).clamp_(max=L - 1)
+    valid = wanted <= csum[-1]
+    left = dc.gather_pt(pt, srcpos)
+    right = dc.gather_pt(pt, (srcpos + 1).clamp_(max=L - 1))
+    merged = dc.point_add(left, right)
+    out = dc.where_pt(has_partner[srcpos] & valid, merged, left)
+    out = dc.where_pt(valid, out, dc.infinity_like((l_next,), key.device))
+    new_key = torch.where(valid, key[srcpos], torch.full_like(key[:1], mk.MAXKEY))
+    return new_key, out
+
+
+def eager_horner(per_window, c: int):
+    """The window combine as the port ran it before its kernel: a point_double
+    launch of c doublings and a point_add launch a window."""
+    num_windows = per_window[0].shape[1]
+    acc = tuple(v[:, num_windows - 1].contiguous() for v in per_window)
+    for w in range(num_windows - 2, -1, -1):
+        acc = dc.point_double(acc, times=c)
+        acc = dc.point_add(acc, tuple(v[:, w].contiguous() for v in per_window))
+    return acc
+
+
+def round_err(a, b) -> int:
+    """The largest word difference of two rounds' (keys, points)."""
+    return max(max_abs_err(a[0], b[0]), triple_err(a[1], b[1]))
+
+
+def plant_neighbours(fq, key, pt, srcpos, count):
+    """A copy of ``pt`` whose first survivors that have a partner meet the edge
+    cases in turn: equal points (the doubling branch), opposite points, the left
+    infinite, the right infinite, both infinite."""
+    pt = tuple(t.clone() for t in pt)
+    n = key.shape[0]
+    lefts = srcpos[: int(count)].cpu().tolist()
+    keys = key.cpu()
+    pairs = [i for i in lefts if i + 1 < n and int(keys[i + 1]) == int(keys[i])]
+    picks = pairs[:10] + pairs[len(pairs) // 2:][:5] + pairs[-5:]
+    for case, i in enumerate(picks):
+        kind = case % 5
+        if kind == 0:
+            for t in pt:
+                t[i + 1] = t[i]
+        elif kind == 1:
+            pt[0][i + 1] = pt[0][i]
+            pt[1][i + 1] = fb.sub(fq, torch.zeros_like(pt[1][i]), pt[1][i])
+            pt[2][i + 1] = pt[2][i]
+        else:
+            for lane in ((i,), (i + 1,), (i, i + 1))[kind - 2]:
+                pt[2][lane] = 0
+    return pt, len(picks)
+
+
+def check_scan_and_round(rng, pool) -> dict[str, int]:
+    """run_scan at every width of SCAN_CHECK_WIDTHS on every key set, with
+    l_next below, at and above the survivor count, and compact_add on random
+    points (edge neighbours planted) up to COMPACT_CHECK_TOP, word for word."""
+    fq = dc.fq_ctx(pool[0].device)
+    errs = {"run_scan": 0, "compact_add": 0}
+    cases = rounds = planted = 0
+    for n in SCAN_CHECK_WIDTHS:
+        for name, key in scan_key_sets(rng, n, fq.device).items():
+            count = int(mk.run_scan_plain(key, 1)[1])
+            for l_next in sorted({max(1, count - 1), count, count + 1}):
+                want = mk.run_scan_plain(key, l_next)
+                got = mk.run_scan(key, l_next)
+                err = max(max_abs_err(g, w) for g, w in zip(got, want))
+                check(err == 0, f"run_scan differs from its plain version ({name}, {n} keys, "
+                      f"l_next {l_next})")
+                errs["run_scan"] = max(errs["run_scan"], err)
+                cases += 1
+                if n > COMPACT_CHECK_TOP or name != "runs across tiles and blocks":
+                    continue
+                pt, k = plant_neighbours(fq, key, tuple(v[:n] for v in pool), want[0], want[1])
+                planted += k
+                err = round_err(mk.compact_add(key, pt, *got[:2]),
+                                mk.compact_add_plain(key, pt, *want[:2]))
+                check(err == 0, f"compact_add differs from its plain version ({n} keys, "
+                      f"l_next {l_next})")
+                errs["compact_add"] = max(errs["compact_add"], err)
+                rounds += 1
+    torch.cuda.synchronize()
+    say(f"  run_scan == its plain version in {cases} cases ({len(SCAN_CHECK_WIDTHS)} widths from 1 "
+        f"to {max(SCAN_CHECK_WIDTHS)} keys, five key sets, l_next below, at and above the count); "
+        f"compact_add in {rounds} rounds up to {COMPACT_CHECK_TOP} keys, {planted} planted "
+        f"neighbours (equal, opposite, infinite)")
+    return errs
+
+
+def check_horner(rng, pool) -> tuple[dict[str, int], float]:
+    """horner at HORNER_CHECK_SEGMENTS x HORNER_CHECK_WINDOWS on the per-window
+    sums of real MSMs, with infinities mixed in, against its plain version
+    (computed at the most segments: the lanes are independent). Returns the
+    errors and the plain version's ms at c = 16 (a chain of one launch-bound
+    eager operation after another: its time hardly depends on the segments)."""
+    S = max(HORNER_CHECK_SEGMENTS)
+    m = HORNER_CHECK_POINTS
+    points = tuple(v[:m].contiguous() for v in pool)
+    worst, plain_ms = 0, 0.0
+    for c in HORNER_CHECK_WINDOWS:
+        scalars = random_scalars(rng, S * m, points[0].device).reshape(S, m, -1)
+        per_window = pp._window_sums(points, scalars, c)
+        if c < 16:
+            per_window = tuple(v[:, -HORNER_CHECK_TOP_WINDOWS:] for v in per_window)
+        per_window = tuple(v.contiguous() for v in per_window)
+        z = per_window[2]
+        z[1, -1] = 0  # segment 1: the top window infinite
+        z[2, ::3] = 0  # segment 2: every third window
+        z[3] = 0  # segment 3: every window
+        want, t_plain = timed(lambda: mk.horner_plain(per_window, c))
+        if c == 16:
+            plain_ms = t_plain * 1e3
+        for segments in HORNER_CHECK_SEGMENTS:
+            got = mk.horner(tuple(v[:segments].contiguous() for v in per_window), c)
+            err = triple_err(got, tuple(v[:segments] for v in want))
+            check(err == 0, f"horner differs from its plain version ({segments} segments, c={c})")
+            worst = max(worst, err)
+        check(dc.unpack_points(tuple(v[3:4] for v in want)) == [None], "an all-infinite chain")
+    say(f"  horner == its plain version at {HORNER_CHECK_SEGMENTS} segments and c in "
+        f"{HORNER_CHECK_WINDOWS} (below 16 the top {HORNER_CHECK_TOP_WINDOWS} windows), on the "
+        f"window sums of MSMs of {m} points, infinities mixed in; the plain version at {S} "
+        f"segments, c = 16: {plain_ms:.1f} ms")
+    return {"horner": worst}, plain_ms
+
+
+def time_round(flush, skey, pt, l_next: int, what: str):
+    """run_scan and compact_add of one real round beside their plain versions,
+    their bounds and the eager round they replace, all with equal results:
+    (the two kernels' records, the round's output)."""
+    scan = mk.run_scan(skey, l_next)
+    check(max(max_abs_err(g, w) for g, w in zip(scan, mk.run_scan_plain(skey, l_next))) == 0,
+          f"run_scan differs from its plain version on {what}")
+    out = mk.compact_add(skey, pt, *scan[:2])
+    plain, t_plain = timed(lambda: mk.compact_add_plain(skey, pt, *scan[:2]))
+    check(round_err(out, plain) == 0, f"compact_add differs from its plain version on {what}")
+    del plain
+    check(round_err(out, eager_compact_round(skey, pt, l_next)) == 0,
+          f"the eager round differs on {what}")
+    n = skey.shape[0]
+    survivors = min(int(scan[1]), l_next)
+    i = scan[0][:survivors].to(torch.int64)
+    j = (i + 1).clamp(max=n - 1)
+    adds = int(((i + 1 < n) & (skey[j] == skey[i]) & (pt[2][i] != 0).any(1)
+                & (pt[2][j] != 0).any(1)).sum())
+    rec = {
+        "run_scan": {"ms": time_events(lambda: mk.run_scan(skey, l_next), TIMED_RUNS, flush),
+                     "plain_ms": time_events(lambda: mk.run_scan_plain(skey, l_next), 3, flush),
+                     "bound": roofline.bound(*roofline.run_scan_cost(n, l_next))},
+        "compact_add": {"ms": time_events(lambda: mk.compact_add(skey, pt, *scan[:2]), TIMED_RUNS,
+                                          flush),
+                        "plain_ms": t_plain * 1e3,
+                        "bound": roofline.bound(*roofline.compact_add_cost(l_next, survivors,
+                                                                           adds))},
+    }
+    eager = time_events(lambda: eager_compact_round(skey, pt, l_next), 3, flush)
+    say(f"  {what}, {n} keys -> {l_next} slots ({survivors} survivors, {adds} finite additions): "
+        f"run_scan + compact_add {rec['run_scan']['ms']:.4f} + {rec['compact_add']['ms']:.4f} ms, "
+        f"the eager round {eager:.4f} ms (CUDA events, median, L2 flushed); plain "
+        f"{rec['run_scan']['plain_ms']:.2f} + {rec['compact_add']['plain_ms']:.1f} ms; bounds "
+        + ", ".join(f"{k} {v['bound'].ms:.4f} ms by {v['bound'].by} ({v['bound'].ms / v['ms']:.1%})"
+                    for k, v in rec.items()))
+    for v in rec.values():
+        b = v.pop("bound")
+        v.update(bound_ms=b.ms, bound_by=b.by)
+    return rec, out
+
+
+def time_horner(flush, per_window, c: int) -> dict:
+    """horner at one shape beside the eager chain, its bound and one thread's
+    least time, with equal results."""
+    S, W = per_window[0].shape[:2]
+    got = mk.horner(per_window, c)
+    check(triple_err(got, eager_horner(per_window, c)) == 0, "the eager chain differs")
+    ms = time_events(lambda: mk.horner(per_window, c), TIMED_RUNS, flush)
+    eager = time_events(lambda: eager_horner(per_window, c), 3, flush)
+    b = roofline.bound(*roofline.horner_cost(S, W, c))
+    floor = roofline.one_thread_ms(roofline.horner_chain_ops(W, c))
+    say(f"  horner, {S} segment(s), c = {c}: {ms:.4f} ms (CUDA events, median), the eager chain "
+        f"{eager:.3f} ms ({2 * (W - 1)} launches); one thread's least time {floor:.4f} ms "
+        f"({roofline.horner_chain_ops(W, c)} operations at one a cycle), {floor / ms:.1%} of it; "
+        f"bound {b.ms * 1e3:.4f} us by {b.by}")
+    return {"ms": ms, "bound_ms": b.ms, "bound_by": b.by, "one_thread_ms": floor, "eager_ms": eager}
+
+
+def phase_msm_kernels(gctx, inputs, taus) -> tuple[dict[str, int], dict[str, dict]]:
+    """run_scan, compact_add and horner against their plain versions, word for
+    word, then their times at the KZG path's real widths: the commitment MSM's
+    first compaction round (2^24 keys) and a steady one, and the Horner chains
+    of the commitment and the quotient steps."""
+    t0 = time.time()
+    rng = np.random.default_rng(18)
+    pool = random_points(rng, COMPACT_CHECK_TOP, gctx.device)
+    errs = check_scan_and_round(rng, pool)
+    horner_errs, horner_plain_ms = check_horner(rng, pool)
+    errs.update(horner_errs)
+    del pool
+    torch.cuda.empty_cache()
+
+    # the commitment MSM of phase 8: its presorted lanes and first rounds
+    flush = torch.empty(256 << 20, dtype=torch.int8, device=gctx.device)
+    input_poly = MultilinearPoly.from_ints(gctx, inputs)
+    basis = KZG.for_poly(input_poly, taus).g1_lagrange_basis
+    scalars = fk.from_mont(gctx, input_poly.table)
+    n = scalars.shape[0]
+    c = pp.pick_window_bits(n)
+    nbuck = (1 << (c - 1)) + 1
+    fq = dc.fq_ctx(basis[0].device)
+    abs_d, signs = pp._recode_signed(scalars, c)
+    skey, pt = pp._presort(basis, fb.sub(fq, torch.zeros_like(basis[1]), basis[1]), abs_d, signs,
+                           nbuck)
+    sizes = pp._compaction_schedule(skey.shape[0], 256 // c * nbuck + 1)
+    times, (skey, pt) = time_round(flush, skey, pt, sizes[0], "the commitment's first round")
+    for l_next in sizes[1:]:
+        skey, pt = pp._compact_round(skey, pt, l_next)
+    time_round(flush, skey, pt, sizes[-1], "a steady round of the commitment")
+    del skey, pt, abs_d, signs
+    torch.cuda.empty_cache()
+
+    per_window = pp._window_sums(basis, scalars[None], c)
+    times["horner"] = time_horner(flush, tuple(v.contiguous() for v in per_window), c)
+    times["horner"]["plain_ms"] = horner_plain_ms
+    for segments, cc in HORNER_TIME_SHAPES:
+        m = min(1 << 10, n)
+        sc = random_scalars(rng, segments * m, basis[0].device).reshape(segments, m, -1)
+        pw = pp._window_sums(tuple(v[:m].contiguous() for v in basis), sc, cc)
+        time_horner(flush, tuple(v.contiguous() for v in pw), cc)
+    say(f"  (phase 18 took {time.time() - t0:.1f}s)")
+    return errs, times
+
+
+# ----------------------------------------------------------------------
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -2253,16 +2665,20 @@ def main() -> int:
     pk.library()
     nk.library()
     tk.library()
+    mk.library()
     say(f"    kernels built from {KERNEL_SOURCE} ({_build.build_seconds['sumcheck_kernels']:.1f}s), "
         f"{POINT_KERNEL_SOURCE} ({_build.build_seconds['point_kernels']:.1f}s), "
-        f"{NTT_KERNEL_SOURCE} ({_build.build_seconds['ntt_kernels']:.1f}s) and "
-        f"{TRANSCRIPT_KERNEL_SOURCE} ({_build.build_seconds['transcript_kernels']:.1f}s), side by "
+        f"{NTT_KERNEL_SOURCE} ({_build.build_seconds['ntt_kernels']:.1f}s), "
+        f"{TRANSCRIPT_KERNEL_SOURCE} ({_build.build_seconds['transcript_kernels']:.1f}s) and "
+        f"{MSM_KERNEL_SOURCE} ({_build.build_seconds['msm_kernels']:.1f}s), side by "
         f"side in {time.time() - t0:.1f}s (0.0 = already built)")
     for stem, needles in (("sumcheck_kernels", ("gkr_round_kernel", "halves_sums_kernel",
                                                 "fold_and_halves_kernel")),
                           ("point_kernels", ("point_add_kernel", "point_double_kernel")),
                           ("ntt_kernels", ("ntt_phase1_kernel", "ntt_stage_kernel")),
-                          ("transcript_kernels", ("keccak_f_kernel", "round_step_kernel"))):
+                          ("transcript_kernels", ("keccak_f_kernel", "round_step_kernel")),
+                          ("msm_kernels", tuple(f"{name}_kernel" for name in SCAN_PASSES)
+                           + ("compact_add_kernel", "horner_kernel"))):
         for needle in needles:
             for line in resource_usage(_build.build_log[stem], needle):
                 say(f"    {line}")
@@ -2346,6 +2762,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_device_kernels(ctx, gctx)
     say("[14] each path once more under torch.profiler: the kernels' device time at real widths")
+    scan_op_kernels()
     profiles = phase_profiles(ctx, gctx, rctx, circuit, inputs, taus, ntt_inputs, ntt_poly)
     check_one_launch(profiles)
 
@@ -2366,8 +2783,8 @@ def main() -> int:
     mesh_launches = phase_mesh_paths(ctx, gctx, rctx, proof, circuit, inputs, taus, gkr_blob,
                                      kept.input_proof.commitment, ntt_outputs, t_prove_single)
     say(f"  launches in phase 16: {mesh_launches}; the phase {time.time() - t0:.1f}s")
-    for name in nk.KERNEL_NAMES + ("mont_mul", "fold", "halves_sums", "gkr_round",
-                                   "point_add", "point_double"):
+    for name in nk.KERNEL_NAMES + mk.KERNEL_NAMES + ("mont_mul", "fold", "halves_sums",
+                                                     "gkr_round", "point_add", "point_double"):
         check(mesh_launches[name] > 0, f"the mesh paths launched no {name}")
 
     say("[17] the transcript kernels, keccak_f and round_step, against their plain PyTorch "
@@ -2375,14 +2792,23 @@ def main() -> int:
     transcript_errs, transcript_times = phase_transcript_kernels()
     errs.update(transcript_errs)
 
+    say("[18] the MSM kernels, run_scan, compact_add and horner, against their plain PyTorch "
+        "versions (exact), and their times at the KZG path's widths beside the eager chains "
+        "they replace")
+    msm_errs, msm_times = phase_msm_kernels(gctx, inputs, taus)
+    errs.update(msm_errs)
+
     kernels = []
-    for name in fk.KERNEL_NAMES + pk.KERNEL_NAMES + nk.KERNEL_NAMES + tk.KERNEL_NAMES:
+    for name in (fk.KERNEL_NAMES + pk.KERNEL_NAMES + nk.KERNEL_NAMES + tk.KERNEL_NAMES
+                 + mk.KERNEL_NAMES):
         if name in pk.KERNEL_NAMES:
             rec, source = point_times[1 << GKR_NUM_VARS][name], POINT_KERNEL_SOURCE
         elif name in nk.KERNEL_NAMES:
             rec, source = ntt_times[NTT_LOG_SIZES[0]][name], NTT_KERNEL_SOURCE
         elif name in tk.KERNEL_NAMES:
             rec, source = transcript_times[name], TRANSCRIPT_KERNEL_SOURCE
+        elif name in mk.KERNEL_NAMES:
+            rec, source = msm_times[name], MSM_KERNEL_SOURCE
         else:
             rec, source = times[1 << NUM_VARS][name], KERNEL_SOURCE
         kernels.append({

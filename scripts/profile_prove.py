@@ -18,8 +18,9 @@ time, and a profiler summary of one small fused layer.
 
 KZG: the stages of the input proof one by one (set-up, commitment, basis chain,
 quotient tables, each step's batched quotient MSM with its window width), the
-stages inside the commitment MSM, and a profiler summary of that MSM: what share
-of its device time the two point kernels take, and the device's idle share.
+stages inside the commitment MSM (each compaction round's ``run_scan`` and
+``compact_add`` by their device time), and a profiler summary of that MSM: what
+share of its device time each kernel takes, and the device's idle share.
 """
 
 from __future__ import annotations
@@ -45,6 +46,7 @@ from zktpu_torch.gkr import protocol as gkr  # noqa: E402
 from zktpu_torch.gkr.circuit import Circuit  # noqa: E402
 from zktpu_torch.hash import keccak_device as kd  # noqa: E402
 from zktpu_torch.field import kernels as fk  # noqa: E402
+from zktpu_torch.msm import kernels as mk  # noqa: E402
 from zktpu_torch.msm import pippenger as pp  # noqa: E402
 from zktpu_torch.pcs.kzg import KZG  # noqa: E402
 from zktpu_torch.poly.multilinear import MultilinearPoly  # noqa: E402
@@ -163,8 +165,21 @@ def gkr_mode(num_vars: int) -> int:
     return 0
 
 
+def device_ms(fn):
+    """(fn(), the milliseconds between CUDA events around it): its kernels'
+    device time where the launches outrun the card."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
 def msm_stages(points, scalars, c: int) -> None:
-    """The stages of one Pippenger MSM (one window group), one by one."""
+    """The stages of one Pippenger MSM (one window group), one by one; each
+    compaction round's two kernels by their device time."""
     num_windows = 256 // c
     nbuck = (1 << (c - 1)) + 1
     n = scalars.shape[0]
@@ -174,18 +189,25 @@ def msm_stages(points, scalars, c: int) -> None:
                   lambda: fb.sub(fq, torch.zeros_like(points[1]), points[1]))
     skey, pt = timed(f"sort + gathers of {num_windows} x {n} lanes (_presort)",
                      lambda: pp._presort(points, neg_y, abs_d, signs, nbuck))
-    longest = int(pp._run_rank(skey).max().item()) + 1
+    sizes = pp._compaction_schedule(num_windows * n, num_windows * nbuck + 1)
+    scan = mk.run_scan(skey, sizes[0] if sizes else skey.shape[0])
+    longest = int(scan[2].item())
     rounds = max(1, (longest - 1).bit_length())
-    sizes = pp._compaction_schedule(num_windows * n, num_windows * nbuck + 1)[:rounds]
+    sizes = sizes[:rounds]
     sizes += [sizes[-1] if sizes else skey.shape[0]] * (rounds - len(sizes))
     print(f"  longest bucket run {longest}: {rounds} compaction rounds at widths {sizes}")
-    for l_next in sizes:
-        skey, pt = timed(f"compaction round -> {l_next} lanes",
-                         lambda: pp._compact_round(skey, pt, l_next))
+    t0 = time.time()
+    for r, l_next in enumerate(sizes):
+        keys = skey.shape[0]
+        scan, ms_scan = device_ms(lambda: mk.run_scan(skey, l_next))
+        (skey, pt), ms_add = device_ms(lambda: mk.compact_add(skey, pt, *scan[:2]))
+        print(f"  compaction round {r}: {keys} keys -> {l_next} slots: run_scan {ms_scan:.4f} ms, "
+              f"compact_add {ms_add:.4f} ms (CUDA events)")
+    print(f"  the {rounds} rounds, timed one by one: {(time.time() - t0) * 1e3:.2f} ms")
     buckets = timed("densify", lambda: pp._densify(skey, pt, num_windows, nbuck))
     per_window = timed(f"bucket reduction ({num_windows} x {nbuck - 1} buckets)",
                        lambda: pp._weighted_reduce_staged(buckets))
-    timed(f"Horner chain ({256 - c} doublings, {num_windows - 1} additions)",
+    timed(f"Horner chain ({256 - c} doublings, {num_windows - 1} additions; one horner launch)",
           lambda: pp._horner_single(per_window, c))
 
 

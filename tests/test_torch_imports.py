@@ -57,7 +57,7 @@ def test_every_module_imports_with_jax_and_zktpu_blocked():
     modules = _port_modules() + ["chip_smoke"]
     assert "zktpu_torch.sumcheck.fused" in modules and "zktpu_torch.field.kernels" in modules
     for name in ("curve.bls12_381", "curve.device", "curve.point_kernels", "msm.fixed_base",
-                 "msm.pippenger", "msm.bit_split", "pcs.kzg", "gkr.protocol", "convert",
+                 "msm.pippenger", "msm.kernels", "msm.bit_split", "pcs.kzg", "gkr.protocol", "convert",
                  "ntt.ntt", "ntt.ntt_kernels", "merkle.tree", "shamir", "fibonacci",
                  "serialize", "oracle", "utils.roofline", "parallel.context", "parallel.mesh",
                  "parallel.dryrun"):

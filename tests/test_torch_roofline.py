@@ -116,6 +116,52 @@ def test_round_step_priced_by_kind():
         rl.lanes_bound_ms("round_step", 62, 0, H100)
 
 
+def test_msm_kernel_costs():
+    """run_scan and compact_add at the commitment's first round (2^24 keys ->
+    8,650,762 slots) and at a steady one (1,032,211); horner's chain, whose one
+    thread sets its least time: 240 doublings and 15 additions at c = 16,
+    252 and 63 at c = 4 (PERF.md section 6)."""
+    first, steady = 8_650_762, 1_032_211
+    assert rl.run_scan_cost(1 << 24, first) == (4 * ((1 << 24) + first + 2), 0)
+    assert rl.run_scan_cost(steady, steady) == (4 * (2 * steady + 2), 0)
+    b = rl.bound(*rl.run_scan_cost(1 << 24, first), H100)
+    assert (round(b.ms, 4), b.by) == (0.0304, "bytes")
+    # a slot: srcpos, key and the neighbour's key and a point read; a key and
+    # a point written; an addition reads the neighbour's point
+    assert rl.compact_add_cost(1, 1, 0) == (4 + 12 + 144 + 148, 0)
+    assert rl.compact_add_cost(1, 1, 1) == (4 + 12 + 144 + 144 + 148, 8880)
+    assert rl.compact_add_cost(2, 0, 0) == (4 + 2 * 148, 0)
+    b = rl.bound(*rl.compact_add_cost(first, first, 0), H100)
+    assert (round(b.ms, 4), b.by) == (0.7850, "bytes")
+    b = rl.bound(*rl.compact_add_cost(first, first, 1 << 21), H100)
+    assert (round(b.ms, 4), b.by) == (1.1133, "operations")
+    assert rl.horner_chain_ops(16, 16) == 240 * 3480 + 15 * 8880 == 968_400
+    assert rl.horner_chain_ops(64, 4) == 252 * 3480 + 63 * 8880 == 1_436_400
+    assert rl.horner_chain_ops(1, 16) == 0
+    assert round(rl.one_thread_ms(rl.horner_chain_ops(16, 16)), 4) == 0.4891
+    assert round(rl.one_thread_ms(rl.horner_chain_ops(64, 4)), 4) == 0.7255
+    assert rl.horner_cost(2, 16, 16) == (2 * 17 * 144, 2 * 968_400)
+    b = rl.bound(*rl.horner_cost(1, 16, 16), H100)
+    assert (round(b.ms * 1e6, 2), b.by) == (57.89, "operations")
+
+
+def test_msm_kernels_priced_on_a_path():
+    """run_scan by keys and slots, compact_add by slots with no addition
+    priced, horner by its chains' kinds."""
+    assert rl.lanes_bound_ms("run_scan", 100, 0, H100, scan_slots=60) == rl.bound(
+        *rl.run_scan_cost(100, 60), H100).ms
+    assert rl.lanes_bound_ms("compact_add", 60, 0, H100) == rl.bound(
+        *rl.compact_add_cost(60, 60, 0), H100).ms
+    chains = {(16, 16): 1, (64, 4): 2}
+    want = rl.bound(rl.horner_cost(1, 16, 16)[0] + rl.horner_cost(2, 64, 4)[0],
+                    rl.horner_cost(1, 16, 16)[1] + rl.horner_cost(2, 64, 4)[1], H100).ms
+    assert rl.lanes_bound_ms("horner", 3, 0, H100, chains=chains) == want
+    with pytest.raises(ValueError):
+        rl.lanes_bound_ms("horner", 2, 0, H100, chains=chains)
+    with pytest.raises(ValueError):
+        rl.lanes_bound_ms("horner", 3, 0, H100)
+
+
 def test_one_peak_entry_and_none_without_a_card():
     assert list(rl.PEAKS) == ["NVIDIA H100 80GB HBM3"]
     assert H100.bytes_per_s == 3.35e12 and H100.int32_mad_per_s == 132 * 64 * 1.98e9

@@ -70,6 +70,13 @@ FQ_HD constexpr uint32_t P2(int j) {
        : j == 9 ? 0x96374f6cu : j == 10 ? 0x72ffcd34u : 0x340223d4u;
 }
 constexpr uint32_t N0 = 0xfffcfffdu;
+// 1 in Montgomery form, R mod p = 2^384 mod p: the Y of infinity (0, 1, 0)
+FQ_HD constexpr uint32_t ONE(int j) {
+  return j == 0 ? 0x0002fffdu : j == 1 ? 0x76090000u : j == 2 ? 0xc40c0002u
+       : j == 3 ? 0xebf4000bu : j == 4 ? 0x53c758bau : j == 5 ? 0x5f489857u
+       : j == 6 ? 0x70525745u : j == 7 ? 0x77ce5853u : j == 8 ? 0xa256ec6du
+       : j == 9 ? 0x5c071a97u : j == 10 ? 0xfa80e493u : 0x15f65ec3u;
+}
 
 // the carry-flag primitives (mad_lo_cc, addc, ..., and their host emulation)
 using namespace carry;
@@ -494,6 +501,34 @@ FQ_FN void point_add_lane(const uint32_t* __restrict__ x1, const uint32_t* __res
   dbl(J, J);
   sub(V, V, J);  // Y3 = r(V - X3) - 2 S1 J
   store(oy, V);
+}
+
+// The window combine of one segment (zktpu/msm/pippenger.py:_horner_multi,
+// :448): acc = R_{W-1}, then acc = 2^c acc + R_w for w = W - 2 down to 0, where
+// R_w is window w of the segment's table (x, y, z: `windows` points of W words
+// each, canonical). A step is point_double_lane, c doublings, then
+// point_add_lane(acc, R_w); between the two the point goes through canonical
+// words in the thread's two buffers, as between two launches of the point
+// kernels, so the words are those of that chain of launches, lanes of no
+// meaning (P == -Q) included.
+FQ_FN void horner_lane(const uint32_t* __restrict__ x, const uint32_t* __restrict__ y,
+                       const uint32_t* __restrict__ z, int windows, int c,
+                       uint32_t* __restrict__ ox, uint32_t* __restrict__ oy,
+                       uint32_t* __restrict__ oz) {
+  alignas(16) uint32_t acc[3][W];
+  alignas(16) uint32_t dbl[3][W];
+  const long long top = (long long)(windows - 1) * W;
+  copy_words(acc[0], x + top);
+  copy_words(acc[1], y + top);
+  copy_words(acc[2], z + top);
+  for (int w = windows - 2; w >= 0; --w) {
+    const long long o = (long long)w * W;
+    point_double_lane(acc[0], acc[1], acc[2], dbl[0], dbl[1], dbl[2], c);
+    point_add_lane(dbl[0], dbl[1], dbl[2], x + o, y + o, z + o, acc[0], acc[1], acc[2]);
+  }
+  copy_words(ox, acc[0]);
+  copy_words(oy, acc[1]);
+  copy_words(oz, acc[2]);
 }
 
 }  // namespace fq381

@@ -3,10 +3,10 @@
 //
 // Two kernels, the counterparts of the two Pallas TPU kernels of
 // zktpu/curve/pallas_point.py: point_add replaces _add_impl (:78), point_double
-// replaces _double_impl (:117), and with a repeat count also the
-// fori_loop(0, c, point_double_px) of zktpu/msm/pippenger.py's window combine.
-// Every group operation of the fixed-base comb, the Pippenger MSM and the KZG
-// bases goes through one of them.
+// replaces _double_impl (:117), with a repeat count. The fixed-base comb, the
+// KZG bases and the Pippenger MSM's bucket reduction go through them; the MSM's
+// compaction rounds and window combine run the same lane functions
+// (fq381.cuh) inside the kernels of msm_kernels.cu.
 //
 // A batch of points is three (B, 12) uint32 tables X, Y, Z of Montgomery words
 // over Fq, element-major like every table of the package; infinity is Z == 0.
@@ -31,7 +31,7 @@
 // lanes with an infinite operand leave before the first product, and only
 // lanes with P == Q take the doubling branch.
 // point_double runs `times` doublings on the lane in registers between one
-// load and one store, so a Horner window of c doublings is one launch.
+// load and one store.
 //
 // Plain C interface (loaded with ctypes): each function launches on the stream
 // it is given, allocates nothing, does not synchronise, and returns

@@ -8,8 +8,7 @@ PyTorch version built on ``torch_backend`` that computes the same words:
   * ``point_add``    -- complete Jacobian addition (add-2007-bl; infinity,
                         P == Q and P == -Q handled), replaces ``_add_impl``
   * ``point_double`` -- Jacobian doubling (dbl-2009-l), replaces ``_double_impl``;
-                        ``times=c`` doubles each lane c times in one launch, as
-                        zktpu's ``fori_loop`` of c doublings in its window combine
+                        ``times=c`` doubles each lane c times in one launch
 
 A batch of points is a triple ``(X, Y, Z)`` of contiguous ``(..., 12)``
 ``torch.int32`` tensors of Montgomery words over Fq, all of one shape; the point

@@ -9,18 +9,19 @@ The counterpart of ``zktpu/msm/pippenger.py``, stage for stage:
 2. **Sort**: one stable sort of ``window * NBUCK + |digit|`` keys groups equal
    buckets into contiguous runs -- data movement, no group math.
 3. **Compaction tree**: each round pairs rank-even run elements with their right
-   neighbour (one Jacobian add at the *compacted* width) and compacts survivors
-   by gather (``cumsum`` + ``searchsorted``, no scatter). Every run halves every
-   round and the array physically shrinks, so total add work is a small constant
-   times the input size. The round count follows the data: ceil(log2(longest
-   run)), read back once a window group.
+   neighbour (one Jacobian add at the *compacted* width) and compacts the
+   survivors: ``run_scan`` finds them, ``compact_add`` adds each survivor to its
+   neighbour where they lie (``msm/kernels.py``; the survivor count stays on the
+   device). Every run halves every round and the array physically shrinks, so
+   total add work is a small constant times the input size. The round count
+   follows the data: ceil(log2(longest run)), read back once a window group
+   from the first round's scan.
 4. **Densify**: merge the per-key survivors with one dummy infinity per bucket,
    sort, one more pair round -> a dense (W, NBUCK) bucket table.
 5. **Bucket reduction**: suffix sums T_j = sum_{k>=j} B_k by Kogge-Stone shifts,
    then sum_j T_j = sum_k k*B_k by a pairwise tree.
-6. **Window combine**: a Horner chain of c doublings (one ``point_double``
-   launch with ``times=c``, as the JAX package's ``fori_loop``) and one
-   addition a window.
+6. **Window combine**: a Horner chain of c doublings and one addition a window,
+   the whole chain of every segment in one ``horner`` launch.
 
 Eager PyTorch is staged by nature, one launch a stage at whatever width the
 stage has, so what the JAX package adds to keep its compiler's bill down has no
@@ -41,14 +42,14 @@ import torch
 
 from ..curve import device as dc
 from ..field import torch_backend as fb
-
-_MAXKEY = 2**30
+from . import kernels as mk
 
 #: bytes the sort and the first compaction round of one window group may hold.
-#: An entry is a 144-byte point; beside the sorted copy live the gathered left
-#: and right halves, their sum and the selected output (4 x 1/2 copy), the keys
-#: and the sort's indices: about 4 copies in all. 24 GB of the card's 80 leaves
-#: room for the bases, the tables of the proof and PyTorch's cached blocks.
+#: An entry is a 144-byte point; the sort gathers the sorted copy (X, Y, Z and
+#: the masked Z), the first round writes half a copy beside it, and the keys
+#: and the sort's indices live too: under 4 copies in all. 24 GB of the card's
+#: 80 leaves room for the bases, the tables of the proof and PyTorch's cached
+#: blocks.
 SORT_BUDGET_BYTES = int(24e9)
 _LIVE_COPIES = 4
 POINT_BYTES = 3 * 48
@@ -103,42 +104,15 @@ def _recode_signed(scalars, c: int):
     return torch.stack(abs_digits), torch.stack(signs)
 
 
-def _run_rank(key):
-    """Position of every element inside its run of equal keys (sorted keys)."""
-    L = key.shape[0]
-    pos = torch.arange(L, dtype=torch.int64, device=key.device)
-    head = torch.ones(L, dtype=torch.bool, device=key.device)
-    head[1:] = key[1:] != key[:-1]
-    run_start = torch.cummax(torch.where(head, pos, torch.zeros_like(pos)), dim=0).values
-    return pos - run_start
-
-
 def _compact_round(key, pt, l_next: int):
     """One compaction-tree round: pair rank-even elements with their right
     neighbour when keys match, then compact survivors to ``l_next`` slots.
 
-    ``key``: (L,) sorted; ``pt``: Jacobian (L, 12) triple. Padding slots get key
-    MAXKEY / value infinity.
+    ``key``: (L,) int32 sorted; ``pt``: Jacobian (L, 12) triple. Padding slots
+    get key MAXKEY / value infinity.
     """
-    L = key.shape[0]
-    is_left = (_run_rank(key) & 1) == 0
-    next_same = torch.zeros(L, dtype=torch.bool, device=key.device)
-    next_same[:-1] = key[1:] == key[:-1]
-    has_partner = is_left & next_same
-
-    # survivor j (0-based) lives at the position of the (j+1)-th is_left
-    csum = torch.cumsum(is_left, dim=0)
-    wanted = torch.arange(1, l_next + 1, dtype=torch.int64, device=key.device)
-    srcpos = torch.searchsorted(csum, wanted).clamp_(max=L - 1)
-    valid = wanted <= csum[-1]
-
-    left = dc.gather_pt(pt, srcpos)
-    right = dc.gather_pt(pt, (srcpos + 1).clamp_(max=L - 1))
-    merged = dc.point_add(left, right)
-    out = dc.where_pt(has_partner[srcpos] & valid, merged, left)
-    out = dc.where_pt(valid, out, dc.infinity_like((l_next,), key.device))
-    new_key = torch.where(valid, key[srcpos], torch.full_like(key[:1], _MAXKEY))
-    return new_key, out
+    srcpos, count, _ = mk.run_scan(key, l_next)
+    return mk.compact_add(key, pt, srcpos, count)
 
 
 def _compaction_schedule(l0: int, max_segments: int) -> list[int]:
@@ -203,13 +177,16 @@ def _bucket_pipeline_staged(points, abs_g, sgn_g, nbuck: int):
     parts = []
     for g in range(G):
         skey, pt = _presort(points, neg_y, abs_g[g], sgn_g[g], nbuck)
-        longest = int(_run_rank(skey).max().item()) + 1
-        rounds_needed = math.ceil(math.log2(max(2, longest)))
-        shrink_sizes = _compaction_schedule(Wg * n, Wg * nbuck + 1)[:rounds_needed]
-        for l_next in shrink_sizes:
+        sizes = _compaction_schedule(Wg * n, Wg * nbuck + 1)
+        # a group takes at least one round, whose width does not depend on the
+        # data: its scan gives the longest run as well
+        srcpos, count, longest = mk.run_scan(skey, sizes[0] if sizes else skey.shape[0])
+        rounds_needed = math.ceil(math.log2(max(2, int(longest.item()))))
+        sizes = sizes[:rounds_needed]
+        sizes += [sizes[-1] if sizes else skey.shape[0]] * (rounds_needed - len(sizes))
+        skey, pt = mk.compact_add(skey, pt, srcpos, count)
+        for l_next in sizes[1:]:
             skey, pt = _compact_round(skey, pt, l_next)
-        for _ in range(rounds_needed - len(shrink_sizes)):
-            skey, pt = _compact_round(skey, pt, skey.shape[0])
         parts.append(_densify(skey, pt, Wg, nbuck))
     if G == 1:
         return parts[0]
@@ -257,14 +234,9 @@ def _weighted_reduce_staged(buckets):
 
 def _horner_multi(per_window, c: int):
     """Window combine over (S, W, 12) per-segment tables -> (S, 12):
-    acc = ((R_{W-1} * 2^c + R_{W-2}) * 2^c + ...): a window is one launch of c
-    doublings and one addition."""
-    num_windows = per_window[0].shape[1]
-    acc = tuple(v[:, num_windows - 1].contiguous() for v in per_window)
-    for w in range(num_windows - 2, -1, -1):
-        acc = dc.point_double(acc, times=c)
-        acc = dc.point_add(acc, tuple(v[:, w].contiguous() for v in per_window))
-    return acc
+    acc = ((R_{W-1} * 2^c + R_{W-2}) * 2^c + ...), every segment's chain in one
+    ``horner`` launch."""
+    return mk.horner(tuple(v.contiguous() for v in per_window), c)
 
 
 def _horner_single(per_window, c: int):
@@ -290,9 +262,15 @@ def msm_pippenger_multi(points, scalars_batch, c: int | None = None):
 
     The S segments ride the windowed pipeline as S*W independent windows over
     the same point set."""
-    S, m = scalars_batch.shape[:2]
     if c is None:
-        c = pick_window_bits_multi(S, m)
+        c = pick_window_bits_multi(*scalars_batch.shape[:2])
+    return _horner_multi(_window_sums(points, scalars_batch, c), c)
+
+
+def _window_sums(points, scalars_batch, c: int):
+    """The per-window sums sum_k k * B_k of S same-size MSMs against one base:
+    Jacobian (S, 256/c, 12) tables, the window combine's input."""
+    S, m = scalars_batch.shape[:2]
     num_windows = 256 // c
     SW = S * num_windows
     nbuck = (1 << (c - 1)) + 1
@@ -303,7 +281,7 @@ def msm_pippenger_multi(points, scalars_batch, c: int | None = None):
     signs = signs.reshape(num_windows, S, m).transpose(0, 1).reshape(SW // wg, wg, m)
     buckets = _bucket_pipeline_staged(points, abs_d, signs, nbuck)
     per_window = _weighted_reduce_staged(buckets)  # (S*W, 12)
-    return _horner_multi(tuple(v.reshape(S, num_windows, -1) for v in per_window), c)
+    return tuple(v.reshape(S, num_windows, -1) for v in per_window)
 
 
 def msm_pippenger(points, scalars, c: int | None = None):

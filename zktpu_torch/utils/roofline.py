@@ -4,11 +4,11 @@ The counterpart of the JAX package's ``utils/roofline.py``, for the card:
 
   * ``PEAKS`` / ``chip_peaks``: the card's memory rate and 32-bit integer
     multiply-add rate, by ``torch.cuda.get_device_name``;
-  * cost models of the eleven kernels: (bytes moved, 32-bit multiply-adds, or
-    for Keccak 32-bit logical instructions and funnel shifts) of one call,
+  * cost models of the fourteen kernels: (bytes moved, 32-bit multiply-adds,
+    or for Keccak 32-bit logical instructions and funnel shifts) of one call,
     each input read once and each output written once; ``one_thread_ms``, the
     least time of a one-thread kernel's operations (its warp issues one
-    instruction a cycle);
+    instruction a cycle), which bounds a Horner chain or a transcript round;
   * ``bound``: the least time the card could take for such work, the larger of
     bytes over the memory rate and operations over the integer rate;
   * ``time_events`` / ``measure``: CUDA-event timing, and a ``KernelProfile``
@@ -258,18 +258,69 @@ def one_thread_ms(ops: float) -> float:
     return ops / H100_CLOCK * 1e3
 
 
+# ----------------------------------------------------------------------
+# the MSM kernels (``msm/kernels.py``)
+# ----------------------------------------------------------------------
+
+_KEY_BYTES = 4
+_POINT_BYTES = 3 * 48
+
+
+def run_scan_cost(keys: int, slots: int):
+    """Read the sorted keys once; write the ``slots`` survivor positions, the
+    count and the longest run. No multiply-adds: compares and counts."""
+    return _KEY_BYTES * (keys + slots + 2), 0
+
+
+def compact_add_cost(slots: int, survivors: int, adds: int):
+    """A round of ``slots`` outputs: read the count, and for each of the
+    ``survivors`` its position, its key, its neighbour's key and its point,
+    and the neighbour's point where the two add; write a key and a point a
+    slot. Products only on the ``adds`` slots that add two finite points
+    (add-2007-bl); a slot with an infinite operand copies."""
+    nbytes = (_KEY_BYTES + survivors * (3 * _KEY_BYTES + _POINT_BYTES) + adds * _POINT_BYTES
+              + slots * (_KEY_BYTES + _POINT_BYTES))
+    return nbytes, adds * point_add_cost(1)[1]
+
+
+def horner_chain_ops(windows: int, c: int) -> int:
+    """One segment's chain: (windows - 1) x (c doublings and an addition)."""
+    return (windows - 1) * (c * point_double_cost(1)[1] + point_add_cost(1)[1])
+
+
+def horner_cost(segments: int, windows: int, c: int):
+    """Read each segment's ``windows`` points, write one; each segment's chain.
+    Its chain is one thread's: ``one_thread_ms(horner_chain_ops(windows, c))``
+    is the least time of a launch."""
+    return (segments * (windows + 1) * _POINT_BYTES,
+            segments * horner_chain_ops(windows, c))
+
+
 def lanes_bound_ms(name: str, lanes: int, doublings: int, peaks: Peaks | None = None,
-                   rounds: dict | None = None) -> float:
+                   rounds: dict | None = None, scan_slots: int = 0,
+                   chains: dict | None = None) -> float:
     """The least time of ``lanes`` lanes of a kernel, as in its row's bound:
     the five field kernels at W = 8 (a path's few 12-word ``mont_mul`` lanes
     priced so too), ``point_add`` on finite lanes, ``point_double``'s bytes by
     lanes and products by ``doublings`` (lanes x times), the NTT kernels at
     the 2^10 tile with no twiddle reads, ``keccak_f`` by states, ``round_step``
     by ``rounds`` (``hash.kernels.rounds``: launches by rows, prefix lanes and
-    first round), each round at its own cost."""
+    first round), each round at its own cost; ``run_scan`` by keys and
+    ``scan_slots``, ``compact_add`` by slots, each a survivor, its additions
+    not priced (which slots add is on the card), ``horner`` by ``chains``
+    (``msm.kernels.chains``: segments by windows and c)."""
     if lanes == 0:
         return 0.0
-    if name == "keccak_f":
+    if name == "run_scan":
+        nbytes, ops = run_scan_cost(lanes, scan_slots)
+    elif name == "compact_add":
+        nbytes, ops = compact_add_cost(lanes, lanes, 0)
+    elif name == "horner":
+        if chains is None or sum(chains.values()) != lanes:
+            raise ValueError(f"horner: {lanes} segments, priced by kind {chains}")
+        costs = [horner_cost(s, w, c) for (w, c), s in chains.items()]
+        nbytes, ops = (sum(c[i] for c in costs) for i in range(2))
+    elif name == "keccak_f":
         nbytes, ops = keccak_f_cost(lanes)
     elif name == "round_step":
         if rounds is None or sum(rounds.values()) != lanes:
