@@ -46,9 +46,10 @@ started together), then
      (``gkr.protocol.prove`` -> ``gkr.protocol.verify``: the SRS comb, the
      Pippenger MSMs of the commitment and of the 2 x 20 quotients, the host's
      pairings), reads the launch counts of the kernels (a compaction round is
-     one run_scan and one compact_add launch, 171 in all; a Horner chain one
-     horner launch, 21; no point_double), and refuses a tampered quotient
-     point, commitment and opened evaluation;
+     one run_scan and one compact_add launch, 171 in all; the window combines
+     two horner launches, the commitment's and all 20 quotient steps' chains
+     in one; no point_double), and refuses a tampered quotient point,
+     commitment and opened evaluation;
   9. ties the input proof without a reference run: the taus are known, so the
      commitment, every quotient commitment and some SRS entries must be the
      host's scalar multiples of G1; the comb equals the ladder and Pippenger the
@@ -126,14 +127,18 @@ or the script fails. Last,
  18. the MSM kernels: ``run_scan`` against its plain version at 1, 2, 3 and
      from 127 to 2^24 keys (random runs, all equal, all distinct, runs that
      cross the scan's tiles and blocks, MAXKEY tails; ``l_next`` below, at and
-     above the survivor count), ``compact_add`` up to 2^20 keys with equal,
+     above the survivor count), ``compact_add`` on the same keys (tiles of
+     additions only, of copies only, of pads) at every width, with equal,
      opposite and infinite neighbours planted, ``horner`` at 1, 2 and 4
      segments and c = 4, 8 (the top 8 windows), 16 (all) on the window sums
-     of real MSMs with infinities mixed in, word for word; then on the commitment MSM of phase
-     8, its first compaction round (2^24 keys) and a steady one, and its
-     Horner chain: each kernel against its plain version and the eager chain
-     it replaced, with their times (CUDA events) beside the bounds, and the
-     quotient steps' Horner shapes.
+     of real MSMs with infinities mixed in, and ``horner_groups`` on the 20
+     quotient steps' shapes (2 segments, c = 16, 8 x 9, 4 x 10; the same cut
+     of windows) in one launch, word for word; the cooperative lanes' Fq
+     product (``fq_mul_coop``) against the oracle on phase 15's values; then on the commitment MSM of phase 8,
+     its first compaction round (2^24 keys) and a steady one, and its Horner
+     chain: each kernel against its plain version and the eager chain it
+     replaced, with their times (CUDA events) beside the bounds; the
+     quotient steps' Horner shapes and their one launch.
 
 The bounds are ``zktpu_torch/utils/roofline.py``'s, at the peaks it lists for
 the card (it raises on a card it does not list). Any failed comparison exits
@@ -1190,6 +1195,12 @@ def all_launches() -> dict[str, int]:
     return {**fk.launches, **pk.launches, **nk.launches, **tk.launches, **mk.launches}
 
 
+def quotient_windows(n: int) -> list[int]:
+    """The window width c of each quotient step of a 2^n-input proof: step k is
+    one batched MSM of two segments over 2^(n-1-k) points."""
+    return [pp.pick_window_bits_multi(2, 1 << (n - 1 - k)) for k in range(n)]
+
+
 def kzg_expected_msm_launches(n: int) -> dict[str, int]:
     """The point kernels' and horner's launches of ``prove`` at 2^n inputs.
     Its Pippenger calls: the commitment, one call over 2^n points, then step k
@@ -1197,13 +1208,13 @@ def kzg_expected_msm_launches(n: int) -> dict[str, int]:
     at its window c. point_add: the comb's COMB_W - 1 additions, the basis
     chain's n folds, and in each call the bucket reduction's Kogge-Stone and
     pair steps over 2^(c-1) buckets, c - 1 of each (the compaction and
-    densifying rounds are compact_add's, the Horner chain horner's). horner:
-    one a call. point_double: none (the comb's table is built before the path
-    is driven)."""
-    windows = [pp.pick_window_bits(1 << n)] + [pp.pick_window_bits_multi(2, 1 << (n - 1 - k))
-                                               for k in range(n)]
+    densifying rounds are compact_add's, the Horner chains horner's). horner:
+    one for the commitment and one for every quotient step's chains together
+    (21 before the quotient steps shared a launch). point_double: none (the
+    comb's table is built before the path is driven)."""
+    windows = [pp.pick_window_bits(1 << n)] + quotient_windows(n)
     return {"point_add": fixed_base.COMB_W - 1 + n + sum(2 * (c - 1) for c in windows),
-            "point_double": 0, "horner": len(windows)}
+            "point_double": 0, "horner": 2}
 
 
 def tampered(whole, **changes):
@@ -1755,8 +1766,9 @@ def check_one_launch(profiles: dict[str, dict]) -> None:
     runs no finish_rows; each path's transcript is a round_step a round (a
     gkr_round a round on the GKR paths), and no path launches keccak_f (its
     permutations run inside round_step). The MSM kernels as
-    ``check_msm_launches`` says, and the KZG path's window combines are one
-    horner launch each, with no point_double."""
+    ``check_msm_launches`` says, and the KZG path's window combines two horner
+    launches (the commitment's, every quotient step's), with no
+    point_double."""
     one_launch = fk._ONE_LAUNCH + tk.KERNEL_NAMES
     for path, p in profiles.items():
         ran, launched = p["device_n"], p["launches"]
@@ -1772,7 +1784,7 @@ def check_one_launch(profiles: dict[str, dict]) -> None:
               f"{path}: {launched['round_step']} round_step launches for {rounds} rounds")
         check_msm_launches(path, p)
     kzg = profiles["gkr_kzg"]
-    check(kzg["launches"]["horner"] == 1 + GKR_NUM_VARS and kzg["launches"]["point_double"] == 0
+    check(kzg["launches"]["horner"] == 2 and kzg["launches"]["point_double"] == 0
           and kzg["launches"]["run_scan"] == KZG_COMPACT_ROUNDS_2E20,
           f"profiled gkr.prove: horner, point_double, run_scan launches {kzg['launches']}")
     sumcheck = profiles["sumcheck"]
@@ -2369,8 +2381,10 @@ def phase_transcript_kernels() -> tuple[dict[str, int], dict[str, dict]]:
 # phase 18: the MSM kernels
 # ----------------------------------------------------------------------
 
-#: run_scan against its plain version at these key counts (compact_add up to
-#: 2^20 on random points, and at 2^24 on the commitment's first round)
+#: run_scan and compact_add against their plain versions at these key counts
+#: (compact_add on random points, and at 2^24 on the commitment's first round
+#: too); above COMPACT_CHECK_TOP compact_add on one key set at the survivor
+#: count, on the random-point pool repeated
 SCAN_CHECK_WIDTHS = (1, 2, 3, 127, 128, 129, 4095, 4096, 4097, 1 << 16, (1 << 16) + 1, 1 << 20,
                      1 << 24)
 COMPACT_CHECK_TOP = 1 << 20
@@ -2388,6 +2402,8 @@ HORNER_CHECK_TOP_WINDOWS = 8
 #: the quotient steps' Horner chains, timed beside the eager chain after the
 #: commitment's: (segments, c)
 HORNER_TIME_SHAPES = ((2, 16), (2, 8), (2, 4))
+#: phase 18's fq_mul_coop against the oracle: entries (phase 15's 2^12)
+COOP_CHECK_LOG = ORACLE_LOG_SIZE
 
 
 def scan_key_sets(rng, n: int, device) -> dict[str, torch.Tensor]:
@@ -2448,15 +2464,17 @@ def round_err(a, b) -> int:
 
 
 def plant_neighbours(fq, key, pt, srcpos, count):
-    """A copy of ``pt`` whose first survivors that have a partner meet the edge
-    cases in turn: equal points (the doubling branch), opposite points, the left
-    infinite, the right infinite, both infinite."""
+    """A copy of ``pt`` whose first survivors that have a partner (and some in
+    the middle and at the end) meet the edge cases in turn: equal points (the
+    doubling branch), opposite points, the left infinite, the right infinite,
+    both infinite."""
     pt = tuple(t.clone() for t in pt)
     n = key.shape[0]
-    lefts = srcpos[: int(count)].cpu().tolist()
-    keys = key.cpu()
-    pairs = [i for i in lefts if i + 1 < n and int(keys[i + 1]) == int(keys[i])]
-    picks = pairs[:10] + pairs[len(pairs) // 2:][:5] + pairs[-5:]
+    lefts = srcpos[: int(count)].to(torch.int64)
+    right = (lefts + 1).clamp(max=n - 1)
+    pairs = lefts[(lefts + 1 < n) & (key[right] == key[lefts])]
+    half = pairs.shape[0] // 2
+    picks = torch.cat([pairs[:10], pairs[half:half + 5], pairs[-5:]]).tolist()
     for case, i in enumerate(picks):
         kind = case % 5
         if kind == 0:
@@ -2474,12 +2492,18 @@ def plant_neighbours(fq, key, pt, srcpos, count):
 
 def check_scan_and_round(rng, pool) -> dict[str, int]:
     """run_scan at every width of SCAN_CHECK_WIDTHS on every key set, with
-    l_next below, at and above the survivor count, and compact_add on random
-    points (edge neighbours planted) up to COMPACT_CHECK_TOP, word for word."""
+    l_next below, at and above the survivor count, and compact_add on the same
+    rounds over random points (edge neighbours planted; the pool repeated
+    above its size, at the survivor count only), word for word: all equal
+    keys give tiles of additions only, all distinct keys tiles of copies
+    only, a MAXKEY tail tiles of pads."""
     fq = dc.fq_ctx(pool[0].device)
     errs = {"run_scan": 0, "compact_add": 0}
     cases = rounds = planted = 0
     for n in SCAN_CHECK_WIDTHS:
+        reps = -(-n // pool[0].shape[0])
+        points = tuple(v.repeat(reps, 1)[:n] for v in pool) if reps > 1 else tuple(
+            v[:n] for v in pool)
         for name, key in scan_key_sets(rng, n, fq.device).items():
             count = int(mk.run_scan_plain(key, 1)[1])
             for l_next in sorted({max(1, count - 1), count, count + 1}):
@@ -2490,34 +2514,65 @@ def check_scan_and_round(rng, pool) -> dict[str, int]:
                       f"l_next {l_next})")
                 errs["run_scan"] = max(errs["run_scan"], err)
                 cases += 1
-                if n > COMPACT_CHECK_TOP or name != "runs across tiles and blocks":
+                if n > COMPACT_CHECK_TOP and (l_next != count
+                                              or name != "runs across tiles and blocks"):
                     continue
-                pt, k = plant_neighbours(fq, key, tuple(v[:n] for v in pool), want[0], want[1])
+                pt, k = plant_neighbours(fq, key, points, want[0], want[1])
                 planted += k
                 err = round_err(mk.compact_add(key, pt, *got[:2]),
                                 mk.compact_add_plain(key, pt, *want[:2]))
-                check(err == 0, f"compact_add differs from its plain version ({n} keys, "
+                check(err == 0, f"compact_add differs from its plain version ({name}, {n} keys, "
                       f"l_next {l_next})")
                 errs["compact_add"] = max(errs["compact_add"], err)
                 rounds += 1
+                del pt
+        del points
     torch.cuda.synchronize()
     say(f"  run_scan == its plain version in {cases} cases ({len(SCAN_CHECK_WIDTHS)} widths from 1 "
         f"to {max(SCAN_CHECK_WIDTHS)} keys, five key sets, l_next below, at and above the count); "
-        f"compact_add in {rounds} rounds up to {COMPACT_CHECK_TOP} keys, {planted} planted "
-        f"neighbours (equal, opposite, infinite)")
+        f"compact_add in {rounds} rounds, the same keys, {planted} planted neighbours (equal, "
+        f"opposite, infinite)")
     return errs
+
+
+def quotient_groups(rng, pool, n: int, checks: bool):
+    """The window sums of a 2^n-input proof's n quotient steps at their real
+    shapes: step k, two segments of 2^(n-1-k) random points and scalars at
+    its c. For ``checks``, below c = 16 the top HORNER_CHECK_TOP_WINDOWS
+    windows, and infinities mixed in: a top window, every third window, a
+    whole segment."""
+    groups = []
+    for k, c in enumerate(quotient_windows(n)):
+        m = 1 << (n - 1 - k)
+        scalars = random_scalars(rng, 2 * m, pool[0].device).reshape(2, m, -1)
+        per_window = pp._window_sums(tuple(v[:m].contiguous() for v in pool), scalars, c)
+        if checks and c < 16:
+            per_window = tuple(v[:, -HORNER_CHECK_TOP_WINDOWS:] for v in per_window)
+        per_window = tuple(v.contiguous() for v in per_window)
+        z = per_window[2]
+        if checks and k % 3 == 0:
+            z[1, -1] = 0
+        elif checks and k % 3 == 1:
+            z[0, ::3] = 0
+        elif checks:
+            z[1] = 0
+        groups.append((per_window, c))
+    return groups
 
 
 def check_horner(rng, pool) -> tuple[dict[str, int], float]:
     """horner at HORNER_CHECK_SEGMENTS x HORNER_CHECK_WINDOWS on the per-window
     sums of real MSMs, with infinities mixed in, against its plain version
-    (computed at the most segments: the lanes are independent). Returns the
-    errors and the plain version's ms at c = 16 (a chain of one launch-bound
-    eager operation after another: its time hardly depends on the segments)."""
+    (computed at the most segments: the lanes are independent), and
+    horner_groups on the quotient steps' shapes at every lanes-a-chain. The
+    plain chains of one shape run as one (``horner_groups_plain``). Returns
+    the errors and the plain chain's ms at c = 16 (a chain of one
+    launch-bound eager operation after another: its time hardly depends on
+    the segments)."""
     S = max(HORNER_CHECK_SEGMENTS)
     m = HORNER_CHECK_POINTS
     points = tuple(v[:m].contiguous() for v in pool)
-    worst, plain_ms = 0, 0.0
+    groups = []
     for c in HORNER_CHECK_WINDOWS:
         scalars = random_scalars(rng, S * m, points[0].device).reshape(S, m, -1)
         per_window = pp._window_sums(points, scalars, c)
@@ -2528,20 +2583,52 @@ def check_horner(rng, pool) -> tuple[dict[str, int], float]:
         z[1, -1] = 0  # segment 1: the top window infinite
         z[2, ::3] = 0  # segment 2: every third window
         z[3] = 0  # segment 3: every window
-        want, t_plain = timed(lambda: mk.horner_plain(per_window, c))
-        if c == 16:
-            plain_ms = t_plain * 1e3
+        groups.append((per_window, c))
+    quotients = quotient_groups(rng, pool, GKR_NUM_VARS, checks=True)
+    wants, t_plain = timed(lambda: mk.horner_groups_plain(groups + quotients))
+    worst = 0
+    for (per_window, c), want in zip(groups, wants):
         for segments in HORNER_CHECK_SEGMENTS:
             got = mk.horner(tuple(v[:segments].contiguous() for v in per_window), c)
             err = triple_err(got, tuple(v[:segments] for v in want))
             check(err == 0, f"horner differs from its plain version ({segments} segments, c={c})")
             worst = max(worst, err)
         check(dc.unpack_points(tuple(v[3:4] for v in want)) == [None], "an all-infinite chain")
+    before = mk.launches["horner"]
+    got = mk.horner_groups(quotients)
+    check(mk.launches["horner"] == before + 1, "horner_groups is not one launch")
+    for k, (g, w) in enumerate(zip(got, wants[len(groups):])):
+        err = triple_err(g, w)
+        check(err == 0, f"horner_groups differs from its plain version (quotient step {k})")
+        worst = max(worst, err)
+    torch.cuda.synchronize()
     say(f"  horner == its plain version at {HORNER_CHECK_SEGMENTS} segments and c in "
         f"{HORNER_CHECK_WINDOWS} (below 16 the top {HORNER_CHECK_TOP_WINDOWS} windows), on the "
-        f"window sums of MSMs of {m} points, infinities mixed in; the plain version at {S} "
-        f"segments, c = 16: {plain_ms:.1f} ms")
-    return {"horner": worst}, plain_ms
+        f"window sums of MSMs of {m} points, infinities mixed in; horner_groups on the "
+        f"{GKR_NUM_VARS} quotient steps' shapes (c {quotient_windows(GKR_NUM_VARS)}) in one "
+        f"launch; the plain chains (one a shape) {t_plain:.1f}s")
+    return {"horner": worst}, t_plain * 1e3
+
+
+def check_coop_product(rng) -> None:
+    """fq_mul_coop (8 lanes a product, as horner runs them) against the oracle on
+    2^COOP_CHECK_LOG BLS12-381 Fq values with 0, 1 and p - 1 (phase 15's
+    values): edge against edge and each edge against a random value."""
+    ctx = fb.get_ctx(BLS12_381_FQ)
+    p = ctx.spec.modulus
+    a = oracle_values(ctx.spec, rng, 1 << COOP_CHECK_LOG)
+    b = oracle_values(ctx.spec, rng, 1 << COOP_CHECK_LOG)
+    b = b[1:] + b[:1]
+    with ThreadPoolExecutor(os.cpu_count()) as pool:
+        want = list(pool.map(lambda x, y: oracle.mul(x, y, p), a, b))
+    a_mont = fk.to_mont(ctx, ctx.to_device(ctx.pack(a)))
+    b_mont = fk.to_mont(ctx, ctx.to_device(ctx.pack(b)))
+    got = fk.from_mont(ctx, mk.fq_mul_coop(a_mont, b_mont))
+    values = [int(v) for v in ctx.unpack(got).reshape(-1)]
+    bad = sum(x != y for x, y in zip(values, want))
+    check(bad == 0, f"fq_mul_coop differs from the oracle in {bad} products")
+    say(f"  fq_mul_coop (8 lanes a product) == the oracle on 2^{COOP_CHECK_LOG} BLS12-381 Fq "
+        "products, 0, 1 and p - 1 among them")
 
 
 def time_round(flush, skey, pt, l_next: int, what: str):
@@ -2603,17 +2690,29 @@ def time_horner(flush, per_window, c: int) -> dict:
     return {"ms": ms, "bound_ms": b.ms, "bound_by": b.by, "one_thread_ms": floor, "eager_ms": eager}
 
 
+def time_quotient_combine(flush, groups) -> None:
+    """The quotient steps' window combines as one horner_groups launch beside
+    one horner launch a step (as before they shared one)."""
+    one = time_events(lambda: mk.horner_groups(groups), TIMED_RUNS, flush)
+    per_step = time_events(lambda: [mk.horner(pw, c) for pw, c in groups], 3, flush)
+    say(f"  the {len(groups)} quotient steps' window combines in one launch: {one:.4f} ms; a launch "
+        f"a step {per_step:.4f} ms (CUDA events, median)")
+
+
 def phase_msm_kernels(gctx, inputs, taus) -> tuple[dict[str, int], dict[str, dict]]:
     """run_scan, compact_add and horner against their plain versions, word for
-    word, then their times at the KZG path's real widths: the commitment MSM's
-    first compaction round (2^24 keys) and a steady one, and the Horner chains
-    of the commitment and the quotient steps."""
+    word, and the cooperative lanes' product against the oracle; then their
+    times at the KZG path's real widths: the commitment MSM's first compaction
+    round (2^24 keys) and a steady one, the Horner chains of the commitment and
+    the quotient steps, and the quotient steps' one launch."""
     t0 = time.time()
     rng = np.random.default_rng(18)
+    check_coop_product(rng)
     pool = random_points(rng, COMPACT_CHECK_TOP, gctx.device)
     errs = check_scan_and_round(rng, pool)
     horner_errs, horner_plain_ms = check_horner(rng, pool)
     errs.update(horner_errs)
+    quotients = quotient_groups(rng, pool, GKR_NUM_VARS, checks=False)
     del pool
     torch.cuda.empty_cache()
 
@@ -2645,6 +2744,7 @@ def phase_msm_kernels(gctx, inputs, taus) -> tuple[dict[str, int], dict[str, dic
         sc = random_scalars(rng, segments * m, basis[0].device).reshape(segments, m, -1)
         pw = pp._window_sums(tuple(v[:m].contiguous() for v in basis), sc, cc)
         time_horner(flush, tuple(v.contiguous() for v in pw), cc)
+    time_quotient_combine(flush, quotients)
     say(f"  (phase 18 took {time.time() - t0:.1f}s)")
     return errs, times
 
@@ -2678,7 +2778,7 @@ def main() -> int:
                           ("ntt_kernels", ("ntt_phase1_kernel", "ntt_stage_kernel")),
                           ("transcript_kernels", ("keccak_f_kernel", "round_step_kernel")),
                           ("msm_kernels", tuple(f"{name}_kernel" for name in SCAN_PASSES)
-                           + ("compact_add_kernel", "horner_kernel"))):
+                           + ("compact_add_kernel", "horner_kernel", "fq_mul_coop_kernel"))):
         for needle in needles:
             for line in resource_usage(_build.build_log[stem], needle):
                 say(f"    {line}")

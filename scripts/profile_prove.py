@@ -17,10 +17,13 @@ layer by layer (the ``ZKTPU_TRACE`` marks of ``prove_layers``), the verifier's
 time, and a profiler summary of one small fused layer.
 
 KZG: the stages of the input proof one by one (set-up, commitment, basis chain,
-quotient tables, each step's batched quotient MSM with its window width), the
+quotient tables, each step's batched quotient MSM with its window width, all
+the steps as the prover commits them), the
 stages inside the commitment MSM (each compaction round's ``run_scan`` and
-``compact_add`` by their device time), and a profiler summary of that MSM: what
-share of its device time each kernel takes, and the device's idle share.
+``compact_add`` by their device time), a profiler summary of that MSM: what
+share of its device time each kernel takes, and the device's idle share; and
+the least device time of a whole ``gkr.prove``'s ``compact_add`` launches (each
+launch's bound, summed) and Horner chains (one thread's floor of each).
 """
 
 from __future__ import annotations
@@ -50,6 +53,7 @@ from zktpu_torch.msm import kernels as mk  # noqa: E402
 from zktpu_torch.msm import pippenger as pp  # noqa: E402
 from zktpu_torch.pcs.kzg import KZG  # noqa: E402
 from zktpu_torch.poly.multilinear import MultilinearPoly  # noqa: E402
+from zktpu_torch.utils import roofline  # noqa: E402
 from zktpu_torch.sumcheck import fused, protocol  # noqa: E402
 from zktpu_torch.transcript import Transcript  # noqa: E402
 
@@ -211,9 +215,58 @@ def msm_stages(points, scalars, c: int) -> None:
           lambda: pp._horner_single(per_window, c))
 
 
+def msm_bounds(fn) -> None:
+    """The least device time of ``fn``'s ``compact_add`` and ``horner``
+    launches: each compact_add launch's bound (``roofline.compact_add_cost``
+    of its slots, survivors and finite additions, read on the card after it),
+    summed; and each Horner chain's one-thread floor, summed over the chains
+    and, since a launch's chains run side by side, its longest a launch."""
+    bounds = []
+    launched = mk.compact_add
+
+    def compact_add(key, pt, srcpos, count):
+        out = launched(key, pt, srcpos, count)
+        n, l_next = key.shape[0], srcpos.shape[0]
+        survivors = min(int(count), l_next)
+        i = srcpos[:survivors].to(torch.int64)
+        j = (i + 1).clamp(max=n - 1)
+        adds = int(((i + 1 < n) & (key[j] == key[i]) & (pt[2][i] != 0).any(1)
+                    & (pt[2][j] != 0).any(1)).sum())
+        bounds.append(roofline.bound(*roofline.compact_add_cost(l_next, survivors, adds)).ms)
+        return out
+
+    chain_floors = []
+    launched_horner = mk.horner_groups if hasattr(mk, "horner_groups") else None
+
+    def floor(windows, c):
+        return roofline.one_thread_ms(roofline.horner_chain_ops(windows, c))
+
+    mk.compact_add = compact_add
+    mk.reset_launches()
+    try:
+        if launched_horner is not None:
+            def horner_groups(groups):
+                chain_floors.append(max(floor(pw[0].shape[1], c) for pw, c in groups))
+                return launched_horner(groups)
+            mk.horner_groups = horner_groups
+        fn()
+        torch.cuda.synchronize()
+    finally:
+        mk.compact_add = launched
+        if launched_horner is not None:
+            mk.horner_groups = launched_horner
+    summed = sum(segments * floor(w, c) for (w, c), segments in mk.chains.items())
+    print(f"  compact_add: {len(bounds)} launches, their bounds summed {sum(bounds):.4f} ms "
+          f"(largest {max(bounds):.4f} ms)")
+    print(f"  horner: {mk.launches['horner']} launches, {sum(mk.chains.values())} chains "
+          f"{dict(mk.chains)}; one thread's floors summed over the chains {summed:.4f} ms"
+          + (f", the longest a launch summed over the launches {sum(chain_floors):.4f} ms"
+             if chain_floors else ""))
+
+
 def kzg_mode(num_vars: int) -> int:
     ctx = fb.get_ctx(BLS12_381_FR)
-    _, inputs = chip_smoke.gkr_benchmark(num_vars)
+    structure, inputs = chip_smoke.gkr_benchmark(num_vars)
     taus = chip_smoke.gkr_benchmark_taus(num_vars)
     input_poly = MultilinearPoly.from_ints(ctx, inputs)
     rng_point = [(7 * k + 3) << 40 for k in range(num_vars)]
@@ -232,6 +285,8 @@ def kzg_mode(num_vars: int) -> int:
         timed(f"step {k}: batched MSM of 2 x {quotients[k].shape[0]} "
               f"(c = {pp.pick_window_bits_multi(2, quotients[k].shape[0])})",
               lambda: pp.msm_pippenger_multi(bases[k], stack))
+    timed("quotient commit of two openings (_commit_quotients: every step)",
+          lambda: kzg._commit_quotients(quotients, quotients))
     timed("whole commit_with_proof_pair", lambda: kzg.commit_with_proof_pair(
         (opened, rng_point), (opened, rng_point), input_poly))
 
@@ -245,6 +300,8 @@ def kzg_mode(num_vars: int) -> int:
     small = 1 << min(num_vars - 1, 6)
     profiled(f"msm_pippenger_multi of 2 x {small}", lambda: pp.msm_pippenger_multi(
         bases[num_vars - 1 - small.bit_length() + 1], torch.stack([scalars[:small]] * 2)))
+    print(f"bounds of the MSM kernels over a whole gkr.prove at 2^{num_vars} inputs:")
+    msm_bounds(lambda: gkr.prove(Circuit(ctx, structure), inputs, taus=taus))
     return 0
 
 

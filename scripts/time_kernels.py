@@ -5,8 +5,8 @@ Run on a machine with one CUDA device, from the root of a tree of the repo:
 
     python3 scripts/time_kernels.py TAG [PART ...]
 
-PART is one of ``gkr``, ``ntt``, ``sums`` (default: all three). It prints, on
-lines that start with TAG:
+PART is one of ``gkr``, ``ntt``, ``sums``, ``msm`` (default: all four). It
+prints, on lines that start with TAG:
 
   * the registers ``nvcc`` gave ``ntt_phase1``, ``gkr_round``, ``halves_sums``
     and ``fold_and_halves``;
@@ -27,7 +27,16 @@ lines that start with TAG:
     256 MB buffer: cold), flushed by reading that buffer (L2 clean), and not
     flushed (warm), beside ``torch.sum(x.view(2, half, W), dim=1,
     dtype=torch.int64)`` on the same bytes, a library reduction's rate (signed
-    columns: not the same function).
+    columns: not the same function);
+  * ``msm``: on the KZG path of the 2^20-input GKR proof (``chip_smoke``'s
+    inputs and taus, a random opening point), ``compact_add`` on the
+    commitment MSM's first compaction round (2^24 keys) and a steady one, and
+    on quotient step 0's first round; ``horner`` on each of the proof's chain
+    shapes (the commitment's, and two segments at each quotient step's c) and
+    on the whole quotient commit (every step's chains: a launch a step, and
+    one ``horner_groups`` launch where the tree has it): median ms of 20
+    launches by CUDA events, L2 flushed before each, and the registers of the
+    two kernels. ``scripts/profile_prove.py --kzg`` gives the path's stages.
 
 The warm 2^20 prove is compared between trees by ``scripts/ab_prove.py``, in
 one process. To compare two trees, copy this script into both and run it from each, one
@@ -51,10 +60,14 @@ from zktpu_torch.curve import point_kernels as pk  # noqa: E402
 from zktpu_torch.field import kernels as fk  # noqa: E402
 from zktpu_torch.field import torch_backend as fb  # noqa: E402
 from zktpu_torch.field.spec import BLS12_381_FQ, BLS12_381_FR, BN254_FQ, BN254_FR  # noqa: E402
+from zktpu_torch.msm import kernels as mk  # noqa: E402
+from zktpu_torch.msm import pippenger as pp  # noqa: E402
 from zktpu_torch.ntt import ntt_kernels as nk  # noqa: E402
+from zktpu_torch.pcs.kzg import KZG  # noqa: E402
+from zktpu_torch.poly.multilinear import MultilinearPoly  # noqa: E402
 
 RUNS = 20
-PARTS = ("gkr", "ntt", "sums")
+PARTS = ("gkr", "ntt", "sums", "msm")
 
 
 def device_us(fn, kernel: str, reps: int) -> tuple[float, float]:
@@ -179,6 +192,77 @@ def ntt_and_points(tag: str) -> None:
     print(f"{tag} " + "; ".join(out), flush=True)
 
 
+def first_round(points, scalars_batch, c: int):
+    """The presorted keys and points of the first window group of an MSM of
+    ``scalars_batch`` (S, m, 8) against ``points``, and its rounds' widths."""
+    S, m = scalars_batch.shape[:2]
+    num_windows = 256 // c
+    nbuck = (1 << (c - 1)) + 1
+    wg = pp._pick_window_group(m, S * num_windows)
+    abs_d, signs = pp._recode_signed(scalars_batch.reshape(S * m, -1), c)
+    shape = (S * num_windows // wg, wg, m)
+    abs_d = abs_d.reshape(num_windows, S, m).transpose(0, 1).reshape(shape)
+    signs = signs.reshape(num_windows, S, m).transpose(0, 1).reshape(shape)
+    fq = pp.dc.fq_ctx(points[0].device)
+    neg_y = fb.sub(fq, torch.zeros_like(points[1]), points[1])
+    skey, pt = pp._presort(points, neg_y, abs_d[0], signs[0], nbuck)
+    return skey, pt, pp._compaction_schedule(skey.shape[0], wg * nbuck + 1)
+
+
+def time_compact_add(flush, skey, pt, l_next: int) -> str:
+    scan = mk.run_scan(skey, l_next)
+    ms = cs.time_events(lambda: mk.compact_add(skey, pt, *scan[:2]), RUNS, flush)
+    return f"{skey.shape[0]} keys -> {l_next} slots {ms:.4f} ms"
+
+
+def msm_kernels(tag: str) -> None:
+    """compact_add and horner at the KZG path's shapes (see the module's
+    docstring)."""
+    flush = torch.empty(256 << 20, dtype=torch.int8, device="cuda")
+    gctx = fb.get_ctx(BLS12_381_FR)
+    n = cs.GKR_NUM_VARS
+    _, inputs = cs.gkr_benchmark(n)
+    poly = MultilinearPoly.from_ints(gctx, inputs)
+    kzg = KZG.for_poly(poly, cs.gkr_benchmark_taus(n))
+    scalars = fk.from_mont(gctx, poly.table)
+    point = [(7 * k + 3) << 40 for k in range(n)]
+    quotients = kzg._quotients(kzg.open(point, poly), point, poly)
+    bases = kzg.collapsed_bases()
+
+    out = []
+    c = pp.pick_window_bits(1 << n)
+    skey, pt, sizes = first_round(kzg.g1_lagrange_basis, scalars[None], c)
+    out.append("commitment first round " + time_compact_add(flush, skey, pt, sizes[0]))
+    for l_next in sizes:
+        skey, pt = pp._compact_round(skey, pt, l_next)
+    out.append("commitment steady round " + time_compact_add(flush, skey, pt, sizes[-1]))
+    stack0 = torch.stack([quotients[0], quotients[0].flip(0)])
+    skey, pt, sizes = first_round(bases[0], stack0, pp.pick_window_bits_multi(*stack0.shape[:2]))
+    out.append("quotient step 0 first round " + time_compact_add(flush, skey, pt, sizes[0]))
+    del skey, pt
+    print(f"{tag} compact_add ms: " + "; ".join(out), flush=True)
+
+    per_window = tuple(v.contiguous() for v in pp._window_sums(kzg.g1_lagrange_basis,
+                                                               scalars[None], c))
+    shapes = [("commitment, 1 segment", per_window, c)]
+    groups = []
+    for k, q in enumerate(quotients):
+        stack = torch.stack([q, q.flip(0)])
+        ck = pp.pick_window_bits_multi(*stack.shape[:2])
+        pw = tuple(v.contiguous() for v in pp._window_sums(bases[k], stack, ck))
+        groups.append((pw, ck))
+        if k == 0 or ck != groups[k - 1][1]:
+            shapes.append((f"quotient step {k}, 2 segments", pw, ck))
+    out = [f"{label}, c = {cc}: {cs.time_events(lambda: mk.horner(pw, cc), RUNS, flush):.4f} ms"
+           for label, pw, cc in shapes]
+    ms = cs.time_events(lambda: [mk.horner(pw, cc) for pw, cc in groups], RUNS, flush)
+    out.append(f"quotient commit, a launch a step: {ms:.4f} ms")
+    if hasattr(mk, "horner_groups"):
+        ms = cs.time_events(lambda: mk.horner_groups(groups), RUNS, flush)
+        out.append(f"quotient commit, one launch: {ms:.4f} ms")
+    print(f"{tag} horner ms: " + "; ".join(out), flush=True)
+
+
 def main() -> int:
     parts = sys.argv[2:] or list(PARTS)
     if not torch.cuda.is_available() or len(sys.argv) < 2 or not set(parts) <= set(PARTS):
@@ -186,18 +270,23 @@ def main() -> int:
               f"PART in {PARTS}", file=sys.stderr)
         return 1
     tag = sys.argv[1]
-    _build.build_cuda_libraries(["sumcheck_kernels", "point_kernels", "ntt_kernels"])
+    _build.build_cuda_libraries(["sumcheck_kernels", "point_kernels", "ntt_kernels",
+                                 "msm_kernels"])
     fk.library()
     nk.library()
     pk.library()
+    mk.library()
     usage = []
     for stem, needle in (("ntt_kernels", "ntt_phase1_kernel"),
                          ("sumcheck_kernels", "gkr_round_kernel"),
                          ("sumcheck_kernels", "halves_sums_kernel"),
-                         ("sumcheck_kernels", "fold_and_halves_kernel")):
+                         ("sumcheck_kernels", "fold_and_halves_kernel"),
+                         ("msm_kernels", "compact_add_kernel"),
+                         ("msm_kernels", "horner_kernel")):
         usage += cs.resource_usage(_build.build_log[stem], needle)
     print(f"{tag} " + " | ".join(usage), flush=True)
-    for part, fn in (("gkr", gkr_round_sizes), ("ntt", ntt_and_points), ("sums", sums_sizes)):
+    for part, fn in (("gkr", gkr_round_sizes), ("ntt", ntt_and_points), ("sums", sums_sizes),
+                     ("msm", msm_kernels)):
         if part in parts:
             fn(tag)
     print(cs.gpu_line(), flush=True)

@@ -21,8 +21,23 @@ arithmetic), on inputs made from numpy seeds:
     Jacobian words and keys; ``compact.cuh``'s slot (on ``fq381.cuh``) against
     ``compact_add_plain`` with ``l_next`` below, at and above the count;
   * ``horner_plain`` against zktpu's ``_horner_multi`` at two segments, three
-    windows, c = 4, infinities mixed in; ``fq381.cuh``'s ``horner_lane`` built
-    with g++ against ``horner_plain``;
+    windows, c = 4, infinities mixed in; the kernel's chain (``coop381.cuh``
+    built with g++, a group's lanes host threads that meet at a barrier for
+    each shuffle and vote) against ``horner_plain``;
+  * ``horner_groups_plain`` against zktpu's ``_horner_multi`` group by group,
+    on ragged groups of c = 4, 8 and 16, one and two segments, infinite
+    windows; the kernel's blocks over ``chain_table``'s rows, a chain on a
+    group of 8 lanes, against it;
+  * ``coop381.cuh``'s product against ``field/host.py`` and the words of
+    ``fq381.cuh``'s one-thread product, at 0, 1, p - 1, R mod p, lazy values
+    and random ones;
+  * ``compact.cuh``'s tile steps (a slot's kind, the tile's lists of copies
+    and additions, the 16-byte chunks) run as the kernel runs them, with tiles
+    of 8, 6 and 2048 slots, against ``compact_add_plain`` on the round above
+    and on planted neighbours (infinite left, right and both, P and P, P and
+    -P, runs across tile edges, tiles of additions only and of none);
+  * ``KZG._commit_quotients``, one window combine for all quotient steps,
+    against each step's ``msm_pippenger_multi``;
   * the wrappers: CPU tensors take the plain versions; what the kernels do not
     take raises.
 
@@ -46,9 +61,13 @@ from zktpu.msm import pippenger as jp
 from zktpu_torch import convert
 from zktpu_torch.curve import bls12_381 as hc
 from zktpu_torch.curve import device as dc
+from zktpu_torch.field import host
 from zktpu_torch.field import torch_backend as fb
+from zktpu_torch.field.spec import BLS12_381_FR
 from zktpu_torch.msm import kernels as mk
 from zktpu_torch.msm import pippenger as pp
+from zktpu_torch.pcs.kzg import KZG
+from zktpu_torch.poly.multilinear import MultilinearPoly
 
 torch.set_num_threads(1)
 
@@ -57,9 +76,11 @@ fq = dc.fq_ctx("cpu")
 
 HARNESS = r"""
 #include <algorithm>
+#include <thread>
 #include <vector>
 
 #include "compact.cuh"
+#include "coop381.cuh"
 
 using compact::Agg;
 
@@ -73,6 +94,48 @@ void hillis_steele(std::vector<Agg>& s) {
     for (int t = d; t < n; ++t) v[t] = compact::combine(s[t - d], s[t]);
     s = v;
   }
+}
+
+// the kernels' lanes: two words of an element each, 8 a group
+constexpr int L = 2;
+
+// one chain of the horner kernel on a group of host threads
+void coop_chain(const uint32_t* const* pw, const int32_t* ch, uint32_t* const* out, int b) {
+  using coop381::Lanes;
+  coop381::Exchange ex;
+  ex.size = Lanes<L>::G;
+  std::vector<std::thread> lanes;
+  for (uint32_t lane = 0; lane < (uint32_t)Lanes<L>::G; ++lane) {
+    lanes.emplace_back([=, &ex] {
+      const auto s = coop381::make_lanes<L>(coop381::Group<Lanes<L>::G>{lane, &ex});
+      const long in = (long)ch[0] * 12;
+      coop381::horner_group(s, pw[0] + in, pw[1] + in, pw[2] + in, ch[1], ch[2],
+                               out[0] + 12 * b, out[1] + 12 * b, out[2] + 12 * b);
+    });
+  }
+  for (auto& t : lanes) t.join();
+}
+
+void mul_group(const uint32_t* a, const uint32_t* b, uint32_t* out, int n) {
+  using coop381::Lanes;
+  coop381::Exchange ex;
+  ex.size = Lanes<L>::G;
+  std::vector<std::thread> lanes;
+  for (uint32_t lane = 0; lane < (uint32_t)Lanes<L>::G; ++lane) {
+    lanes.emplace_back([=, &ex] {
+      const auto s = coop381::make_lanes<L>(coop381::Group<Lanes<L>::G>{lane, &ex});
+      for (int i = 0; i < n; ++i) {
+        coop381::Fe<L> x, y;
+        coop381::load(s, x, a + 12 * i);
+        coop381::load(s, y, b + 12 * i);
+        coop381::mul(s, x, x, y);
+        if (s.active) {
+          for (int k = 0; k < L; ++k) out[12 * i + L * lane + k] = x[k];
+        }
+      }
+    });
+  }
+  for (auto& t : lanes) t.join();
 }
 
 }  // namespace
@@ -126,20 +189,86 @@ void scan(const int32_t* key, int n, int items, int tiles, int chunk, int32_t* s
   for (long j = *count; j < l_next; ++j) srcpos[j] = n - 1;
 }
 
+// compact_add's kernel, block by block and thread by thread: tiles of
+// threads x items slots, the scan of the runs' counts in order, copies kBatch
+// chunks at a time
+constexpr int kBatch = 3;
+
 void slots(const int32_t* key, const uint32_t* const* pt, int n, const int32_t* srcpos,
-           int32_t count, int l_next, int max_key, int32_t* okey, uint32_t* const* out) {
-  for (int j = 0; j < l_next; ++j) {
-    compact::compact_slot(j, key, pt[0], pt[1], pt[2], n, srcpos, count, max_key, okey, out[0],
-                          out[1], out[2]);
+           int32_t count, int l_next, int max_key, int threads, int items, int32_t* okey,
+           uint32_t* const* out) {
+  const int tile = threads * items;
+  std::vector<int32_t> kinds(compact::noted(tile)), rows(compact::noted(tile)), row(tile);
+  std::vector<uint32_t> run(threads);
+  std::vector<int16_t> slot(tile);
+  for (long long lo = 0; lo < l_next; lo += tile) {
+    for (int k = 0; k < items; ++k) {
+      for (int t = 0; t < threads; ++t) {
+        const int s = k * threads + t;
+        int32_t k_out = 0, r = 0;
+        const uint8_t kind = compact::slot_kind(lo + s, key, pt[2], n, srcpos, count, l_next,
+                                                max_key, k_out, r);
+        if (kind != compact::kNone) okey[lo + s] = k_out;
+        kinds[compact::noted(s)] = kind;
+        rows[compact::noted(s)] = r;
+      }
+    }
+    for (int t = 0; t < threads; ++t) run[t] = compact::run_counts(kinds.data(), t * items, items);
+    for (int t = 1; t < threads; ++t) run[t] += run[t - 1];
+    const uint32_t total = run[threads - 1];
+    const int adds = (int)(total & (compact::kCopyUnit - 1)), copies = (int)(total >> 16);
+    for (int t = 0; t < threads; ++t) {
+      compact::list_run(kinds.data(), rows.data(), t * items, items, t > 0 ? run[t - 1] : 0u,
+                        tile, copies, slot.data(), row.data());
+    }
+    for (int t = 0; t < threads; ++t) {
+      for (int q = t; q < 9 * copies; q += threads * kBatch) {
+        compact::copy_chunks<kBatch>(q, threads, copies, slot.data(), row.data(), tile - copies,
+                                     lo, pt[0], pt[1], pt[2], out[0], out[1], out[2]);
+      }
+    }
+    const long long pad_lo = std::max<long long>(lo, count);
+    const long long pad_hi = std::min<long long>(lo + tile, l_next);
+    const int pads = pad_hi > pad_lo ? (int)(pad_hi - pad_lo) : 0;
+    for (int q = 0; q < 9 * pads; ++q) compact::pad_chunk(q, pads, pad_lo, out[0], out[1], out[2]);
+    for (int e = 0; e < adds; ++e) {
+      compact::add_entry(e, slot.data(), row.data(), lo, pt[0], pt[1], pt[2], out[0], out[1],
+                         out[2]);
+    }
   }
 }
 
+// a chain on a group of host threads a segment
 void horner(const uint32_t* const* pw, int segments, int windows, int c, uint32_t* const* out) {
-  for (long s = 0; s < segments; ++s) {
-    const long in = s * windows * 12;
-    fq381::horner_lane(pw[0] + in, pw[1] + in, pw[2] + in, windows, c, out[0] + 12 * s,
-                       out[1] + 12 * s, out[2] + 12 * s);
+  for (int s = 0; s < segments; ++s) {
+    const int32_t ch[3] = {s * windows, windows, c};
+    coop_chain(pw, ch, out, s);
   }
+}
+
+// the horner kernel's blocks over a chain table (a chain: first row, windows,
+// c), a group of host threads a chain
+void horner_chains(const uint32_t* const* pw, const int32_t* chains, int n_chains,
+                   uint32_t* const* out) {
+  for (int b = 0; b < n_chains; ++b) coop_chain(pw, chains + 3 * b, out, b);
+}
+
+// n products of raw words (lazy, below 2p): fq381::mul's, and coop381::mul's
+// on a group of L-word lanes
+void mul_one(const uint32_t* a, const uint32_t* b, uint32_t* out, int n) {
+  for (int i = 0; i < n; ++i) {
+    fq381::Fe x, y, r;
+    for (int j = 0; j < 12; ++j) {
+      x[j] = a[12 * i + j];
+      y[j] = b[12 * i + j];
+    }
+    fq381::mul(r, x, y);
+    for (int j = 0; j < 12; ++j) out[12 * i + j] = r[j];
+  }
+}
+
+void mul_coop(const uint32_t* a, const uint32_t* b, uint32_t* out, int n) {
+  mul_group(a, b, out, n);
 }
 }
 """
@@ -151,13 +280,16 @@ def lib(tmp_path_factory):
     src = tmp / "harness.cpp"
     src.write_text(HARNESS)
     out = tmp / "libmsm_host.so"
-    subprocess.run(["g++", "-std=c++17", "-O1", "-shared", "-fPIC", "-I", CSRC, str(src),
-                    "-o", str(out)], check=True, capture_output=True)
+    subprocess.run(["g++", "-std=c++17", "-O1", "-shared", "-fPIC", "-pthread", "-I", CSRC,
+                    str(src), "-o", str(out)], check=True, capture_output=True)
     lib = ctypes.CDLL(str(out))
     _P, _I = ctypes.c_void_p, ctypes.c_int
     lib.scan.argtypes = [_P, _I, _I, _I, _I, _P, _I, _P, _P]
-    lib.slots.argtypes = [_P, _P, _I, _P, _I, _I, _I, _P, _P]
+    lib.slots.argtypes = [_P, _P, _I, _P, _I, _I, _I, _I, _I, _P, _P]
     lib.horner.argtypes = [_P, _I, _I, _I, _P]
+    lib.horner_chains.argtypes = [_P, _P, _I, _P]
+    lib.mul_one.argtypes = [_P, _P, _P, _I]
+    lib.mul_coop.argtypes = [_P, _P, _P, _I]
     return lib
 
 
@@ -295,18 +427,79 @@ def test_compact_add_plain_matches_zktpu(round_case):
     assert all(torch.equal(g, w) for g, w in zip(out, want))
 
 
+#: compact_add's tiles, (threads, slots a thread): tiles of 8 and 6 slots
+#: (runs and lists cross their edges), the kernel's own, 128 x 2, and 128 x 16
+TILES = ((4, 2), (2, 3), (128, 2), (128, 16))
+
+
+def _host_round(lib, key, pt, srcpos, count, tile):
+    """compact.cuh's tile steps, run as the kernel runs them, with ``tile`` =
+    (threads, slots a thread)."""
+    l_next = srcpos.shape[0]
+    okey = torch.full((l_next,), -5, dtype=torch.int32)
+    out = tuple(torch.full((l_next, 12), -5, dtype=torch.int32) for _ in range(3))
+    lib.slots(_ptr(key), _ptrs(pt), key.shape[0], _ptr(srcpos), int(count), l_next, mk.MAXKEY,
+              *tile, _ptr(okey), _ptrs(out))
+    return okey, out
+
+
 def test_compact_slot_matches_plain(lib, round_case):
     key, pt, _ = round_case
-    n = key.shape[0]
-    for l_next in (8, 9, 10, 16):  # below, at and above the count (9), and every key
-        srcpos, count, _ = mk.run_scan_plain(key, l_next)
-        okey = torch.empty(l_next, dtype=torch.int32)
-        out = tuple(torch.empty((l_next, 12), dtype=torch.int32) for _ in range(3))
-        lib.slots(_ptr(key), _ptrs(pt), n, _ptr(srcpos), int(count), l_next, mk.MAXKEY,
-                  _ptr(okey), _ptrs(out))
-        want_key, want = mk.compact_add_plain(key, pt, srcpos, count)
+    for tile in TILES:
+        for l_next in (8, 9, 10, 16):  # below, at and above the count (9), and every key
+            srcpos, count, _ = mk.run_scan_plain(key, l_next)
+            okey, out = _host_round(lib, key, pt, srcpos, count, tile)
+            want_key, want = mk.compact_add_plain(key, pt, srcpos, count)
+            assert torch.equal(okey, want_key)
+            assert all(torch.equal(g, w) for g, w in zip(out, want))
+
+
+@pytest.fixture(scope="module")
+def planted_round():
+    """Sorted keys whose first eight survivors all add (a tile of 8 or 6 slots
+    that is all additions), then eight lone keys (tiles with no addition), then
+    pairs with the left infinite, the right infinite, both infinite, P and P,
+    P and -P, runs of 3 and 5 across tile edges, and a MAXKEY tail."""
+    pts = [_host(k) for k in range(2, 40)]
+    a, b = pts[0], pts[1]
+    keys, points = [], []
+    for i in range(8):  # eight pairs, each of two finite, distinct points
+        keys += [i, i]
+        points += [pts[2 + 2 * i], pts[3 + 2 * i]]
+    keys += list(range(8, 16))  # lone keys
+    points += pts[18:26]
+    planted = [[None, a], [a, None], [None, None], [a, a], [a, hc.neg(a)], [b, a, b],
+               [a, b, pts[26], pts[27], None]]
+    for i, run in enumerate(planted):
+        keys += [16 + i] * len(run)
+        points += run
+    keys += [mk.MAXKEY] * 3
+    points += [None] * 3
+    return _i32(keys), dc.pack_points(points, "cpu")
+
+
+@pytest.mark.parametrize("tile", TILES)
+def test_compact_tile_planted_cases_match_plain(lib, planted_round, tile):
+    key, pt = planted_round
+    count = int(mk.run_scan_plain(key, 1)[1])
+    for l_next in sorted({count - 1, count, count + 1, key.shape[0]}):
+        srcpos, count_t, _ = mk.run_scan_plain(key, l_next)
+        okey, out = _host_round(lib, key, pt, srcpos, count_t, tile)
+        want_key, want = mk.compact_add_plain(key, pt, srcpos, count_t)
         assert torch.equal(okey, want_key)
         assert all(torch.equal(g, w) for g, w in zip(out, want))
+
+
+def test_planted_round_means_what_it_says(planted_round):
+    key, pt = planted_round
+    new_key, out = pp._compact_round(key, pt, 30)
+    pts = dc.unpack_points(pt)
+    a, b = _host(2), _host(3)
+    got = dc.unpack_points(out)
+    assert got[:8] == [hc.add(pts[2 * i], pts[2 * i + 1]) for i in range(8)]
+    assert got[8:16] == pts[16:24]
+    assert got[16:23] == [a, a, None, hc.double(a), None, hc.add(b, a), b]
+    assert new_key[:23].tolist() == list(range(16)) + [16, 17, 18, 19, 20, 21, 21]
 
 
 # ----------------------------------------------------------------------
@@ -337,8 +530,9 @@ def test_horner_plain_matches_zktpu():
 
 
 def test_horner_lane_matches_plain(lib):
-    """Three segments of four windows: random points, an infinite top window,
-    and every window infinite; c = 4 and c = 1; one window alone."""
+    """coop381.cuh's chain (a chain's lanes host threads) on three segments of
+    four windows: random points, an infinite top window, and every window
+    infinite; c = 4 and c = 1; one window alone."""
     rng = np.random.default_rng(9)
     rand = [_host(int(k)) for k in rng.integers(1, 1 << 40, size=8)]
     segments = [rand[:4], [None] + rand[4:7], [None] * 4]
@@ -351,6 +545,138 @@ def test_horner_lane_matches_plain(lib):
         lib.horner(_ptrs(pw), S, W, c, _ptrs(out))
         want = mk.horner_plain(pw, c)
         assert all(torch.equal(g, w) for g, w in zip(out, want))
+
+
+def _group(segments, c):
+    return _windows([seg[::-1] for seg in segments]), c  # lists from the top window down
+
+
+def _ragged_groups():
+    """Groups of mixed c, windows and segments; every top window finite (an
+    infinite one is held against zktpu above, and here below), windows of
+    infinity inside; two groups of one shape, which the plain version runs as
+    one chain."""
+    p = [_host(k) for k in (3, 5, 7, 11, 13, 17, 19, 23)]
+    return [
+        _group([[p[0], p[1], None]], 4),
+        _group([[p[2], None], [p[3], p[4]]], 8),
+        _group([[p[5], None, p[6]]], 16),
+        _group([[p[7], None, p[0]], [p[1], None, None]], 4),
+    ]
+
+
+#: zktpu's _horner_multi jitted with c an argument: one compile serves every c
+_zktpu_horner = jax.jit(jp._horner_multi)
+
+
+def _zktpu_horner_padded(per_window, c, segments=2, windows=3):
+    """zktpu's chain of a group padded to (segments, windows): infinite windows
+    on top (its own top window finite, the chain's words do not change) and
+    infinite segments; its first S rows."""
+    S, W = per_window[0].shape[:2]
+    inf = dc.infinity_like((segments, windows), "cpu")
+    padded = tuple(p.clone() for p in inf)
+    for v, t in zip(padded, per_window):
+        v[:S, :W] = t
+    lm = tuple(jnp.asarray(np.moveaxis(np.stack([
+        convert.points_to_zktpu(tuple(v[s] for v in padded))[i] for s in range(segments)]), -1, 0))
+        for i in range(3))
+    out = convert.points_from_zktpu([np.asarray(v) for v in _zktpu_horner(lm, c)], limb_major=True)
+    return tuple(v[:S] for v in out)
+
+
+def test_horner_groups_plain_matches_zktpu():
+    groups = _ragged_groups()
+    got = mk.horner_groups_plain(groups)
+    assert [tuple(v.shape) for v in got[1]] == [(2, 12)] * 3
+    for (per_window, c), out in zip(groups, got):
+        want = _zktpu_horner_padded(per_window, c)
+        assert all(torch.equal(g, w) for g, w in zip(out, want))
+
+
+def test_horner_kernel_chain_table_matches_plain(lib):
+    """The kernel's blocks over ``chain_table``'s rows, a chain on a group of 8
+    lanes (coop381.cuh's horner_group, the lanes host threads), against
+    horner_groups_plain; the groups of ``_ragged_groups`` plus an infinite top
+    window and an infinite segment."""
+    p = [_host(k) for k in (29, 31)]
+    groups = _ragged_groups() + [_group([[None, p[0]], [None, None]], 2)]
+    table, chains = mk.chain_table(groups)
+    assert chains.tolist() == [[0, 3, 4], [3, 2, 8], [5, 2, 8], [7, 3, 16], [10, 3, 4],
+                               [13, 3, 4], [16, 2, 2], [18, 2, 2]]
+    n = chains.shape[0]
+    out = tuple(torch.empty((n, 12), dtype=torch.int32) for _ in range(3))
+    lib.horner_chains(_ptrs(table), _ptr(chains), n, _ptrs(out))
+    want = mk.horner_groups_plain(groups)
+    assert all(torch.equal(g, torch.cat([w[i] for w in want])) for i, g in enumerate(out))
+
+
+def _mont_words(values):
+    return torch.tensor(np.array([[(v >> (32 * k)) & 0xFFFFFFFF for k in range(12)]
+                                  for v in values], dtype=np.uint32).view(np.int32))
+
+
+def _word_ints(t):
+    return [sum(int(w) << (32 * k) for k, w in enumerate(row))
+            for row in t.numpy().view(np.uint32)]
+
+
+def test_coop_mul_matches_host_field(lib):
+    """coop381.cuh's product (lanes as host threads) on 0, 1, p - 1, R mod p,
+    lazy values in [p, 2p) and random ones: a b / R mod p by field/host.py, and
+    the lazy words of fq381.cuh's one-thread product."""
+    spec = fq.spec
+    p, r_inv = spec.modulus, host.inv(spec, (1 << 384) % spec.modulus)
+    rng = np.random.default_rng(12)
+    edges = [0, 1, p - 1, (1 << 384) % p, p, p + 1, 2 * p - 1]
+    rand = [int.from_bytes(rng.bytes(48), "little") % (2 * p) for _ in range(12)]
+    pairs = [(x, y) for x in edges for y in edges] + list(zip(rand, rand[::-1]))
+    a, b = _mont_words([x for x, _ in pairs]), _mont_words([y for _, y in pairs])
+    n = len(pairs)
+    got, one = torch.empty_like(a), torch.empty_like(a)
+    lib.mul_coop(_ptr(a), _ptr(b), _ptr(got), n)
+    lib.mul_one(_ptr(a), _ptr(b), _ptr(one), n)
+    assert torch.equal(got, one)
+    values = _word_ints(got)
+    assert all(v < 2 * p for v in values)
+    assert [v % p for v in values] == [host.mul(spec, host.mul(spec, x, y), r_inv)
+                                      for x, y in pairs]
+
+
+def test_commit_quotients_matches_per_step_msms(monkeypatch):
+    """On one device the quotient steps' window combines run as one
+    horner_groups call; each step's result is msm_pippenger_multi's. Both
+    sides' chains run on the host curve's affine arithmetic in place of the
+    plain chain's some 250 eager doublings (the results are compared as host
+    points)."""
+    calls = []
+
+    def host_horner(per_window, c):
+        S, W = per_window[0].shape[:2]
+        table = dc.unpack_points(tuple(v.reshape(S * W, 12) for v in per_window))
+        acc = []
+        for seg in range(S):
+            point = None
+            for w in range(W - 1, -1, -1):
+                point = hc.add(hc.multiply(point, 1 << c) if point else None, table[seg * W + w])
+            acc.append(point)
+        calls.append(S)
+        return dc.pack_points(acc, "cpu")
+
+    monkeypatch.setattr(mk, "horner_plain", host_horner)
+    spec_ctx = fb.get_ctx(BLS12_381_FR, device="cpu")
+    rng = np.random.default_rng(13)
+    kzg = KZG.setup(2, [5, 9], device="cpu")
+    tables = [[int(v) for v in rng.integers(0, 1 << 62, size=4)] for _ in range(2)]
+    openings = [kzg._quotients(7, [3, 4], MultilinearPoly.from_ints(spec_ctx, t)) for t in tables]
+    got = kzg._commit_quotients(*openings)
+    assert calls == [4]  # both steps' two segments in one chain (one window width)
+    bases = kzg.collapsed_bases()
+    steps = [pp.msm_pippenger_multi(bases[k], torch.stack([q[k] for q in openings]))
+             for k in range(2)]
+    want = [[dc.unpack_points(tuple(v[s:s + 1] for v in step))[0] for step in steps]
+            for s in range(2)]
+    assert got == want
 
 
 # ----------------------------------------------------------------------
@@ -367,6 +693,12 @@ def test_wrappers_take_the_plain_versions_on_the_cpu(round_case):
     assert torch.equal(got_key, want_key) and all(torch.equal(g, w) for g, w in zip(got, want))
     pw = tuple(v[:2, None].contiguous() for v in pt)
     assert all(torch.equal(g, w) for g, w in zip(mk.horner(pw, 4), mk.horner_plain(pw, 4)))
+    groups = [(pw, 4), (tuple(v[:3].reshape(1, 3, 12) for v in pt), 2)]
+    for got, want in zip(mk.horner_groups(groups), mk.horner_groups_plain(groups)):
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    a, b = pt[0], pt[1]
+    assert torch.equal(mk.fq_mul_coop(a, b), mk.fq_mul_coop_plain(a, b))
+    assert torch.equal(mk.fq_mul_coop_plain(a, b), fb.mont_mul(fq, a, b))
     assert mk.launches == {"run_scan": 0, "compact_add": 0, "horner": 0}
 
 
@@ -399,3 +731,13 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(round_case):
         mk.horner(pw, 0)
     with pytest.raises(TypeError):
         mk.horner(pw[:2], 4)
+    with pytest.raises(TypeError):
+        mk.horner_groups([])
+    with pytest.raises(TypeError):
+        mk.horner_groups([pw])  # no c
+    with pytest.raises(ValueError):
+        mk.horner_groups([(pw, 4), (pw, True)])
+    with pytest.raises(ValueError):
+        mk.fq_mul_coop(pt[0], pt[1][:15])
+    with pytest.raises(ValueError):
+        mk.fq_mul_coop(pt[0].reshape(2, 8, 12), pt[1].reshape(2, 8, 12))  # not (n, 12)

@@ -1,5 +1,5 @@
 // Pippenger's compaction round: the run scan's per-key and per-tile logic, and
-// compact_add's per-slot work (the kernels are in msm_kernels.cu).
+// compact_add's tile of slots (the kernels are in msm_kernels.cu).
 //
 // The keys of a window group are sorted, so equal keys form runs. A key's rank
 // is its distance from the start of its run, rank(i) = i - run_start(i), where
@@ -23,8 +23,8 @@
 // Padding keys (_MAXKEY) get no special case: they form a run like any other,
 // as in both packages.
 //
-// Built with nvcc the scan's functions are host and device code and
-// compact_slot device code; built with a host C++ compiler (as
+// Built with nvcc the scan's and the tile's functions are host and device
+// code and add_entry device code; built with a host C++ compiler (as
 // tests/test_torch_msm_kernels.py does) the same code runs on the host.
 
 #pragma once
@@ -108,37 +108,170 @@ CM_HD int32_t apply_tile(const int32_t* key, int32_t lo, int32_t hi, const Agg& 
   return longest;
 }
 
-// Output slot j of a round over n keys and points (x, y, z: n x 12 words):
-// below `count`, the left at i = srcpos[j] plus its right neighbour where that
-// has the same key (a point_add_lane that reads its operands where they lie),
-// else the left's words, under the left's key; from `count` on, infinity
-// (0, 1 in Montgomery form, 0) under `max_key`.
-FQ_FN void compact_slot(int32_t j, const int32_t* key, const uint32_t* x, const uint32_t* y,
-                        const uint32_t* z, int32_t n, const int32_t* srcpos, int32_t count,
-                        int32_t max_key, int32_t* okey, uint32_t* ox, uint32_t* oy,
-                        uint32_t* oz) {
+// ----------------------------------------------------------------------
+// compact_add: a tile of output slots sorted by what each does
+// ----------------------------------------------------------------------
+//
+// Output slot j < l_next of a round over n keys and points (x, y, z: n x 12
+// words) holds, below `count`, the left at i = srcpos[j] plus its right
+// neighbour where that has the same key, under the left's key; from `count`
+// on, infinity (0, 1 in Montgomery form, 0) under `max_key`. What a slot below
+// the count does follows fq381::point_add_lane's selection: no neighbour of
+// the same key, or an infinite right -> the left's words; an infinite left
+// (and a finite right) -> the right's; both finite -> an addition (equal and
+// opposite points are its branches).
+//
+// A block takes a tile of slots. Each thread classifies its share of them
+// (slot k * threads + t: neighbouring threads on neighbouring slots), writes
+// their keys and notes each slot's kind and source row. Then each thread
+// counts the kinds of as many consecutive slots (its run), the block scans the
+// counts, and each thread lists its run's additions at the front of the
+// tile's list and its copies at the back, both in slot order. Copies and pads
+// then move 16 bytes a lane on neighbouring addresses, several loads in flight
+// a lane, and the additions run densely, one a lane.
+
+enum : uint8_t { kNone = 0, kPad = 1, kCopy = 2, kAdd = 3 };
+
+// counts of a run packed in a word: additions low, copies high (a tile holds
+// fewer than 2^16 slots)
+constexpr uint32_t kCopyUnit = 1u << 16;
+
+// Where slot s of a tile is noted in shared memory: a word of padding every
+// 32, so that a warp meets few banks twice both when its threads take
+// neighbouring slots and when each takes a run of them
+CM_HD int noted(int s) { return s + (s >> 5); }
+
+#ifdef __CUDACC__
+using Quad = ::uint4;
+#else
+using Quad = carry::uint4;
+#endif
+
+// canonical words all zero: the point is infinity (three 16-byte loads, all in
+// flight together)
+CM_HD bool z_is_zero(const uint32_t* z) {
+  const Quad* q = reinterpret_cast<const Quad*>(z);
+  uint32_t any = 0;
+#pragma unroll
+  for (int k = 0; k < fq381::W / 4; ++k) {
+    const Quad v = q[k];
+    any |= v.x | v.y | v.z | v.w;
+  }
+  return any == 0;
+}
+
+// The kind of output slot j, its key and its source row (a copy's: the row
+// whose words it takes; an addition's: the left). Slots at or past l_next do
+// nothing.
+CM_HD uint8_t slot_kind(long long j, const int32_t* key, const uint32_t* z, int32_t n,
+                        const int32_t* srcpos, int32_t count, int32_t l_next, int32_t max_key,
+                        int32_t& okey, int32_t& row) {
   constexpr int W = fq381::W;
-  const long long o = (long long)j * W;
+  row = 0;
+  if (j >= l_next) return kNone;
   if (j >= count) {
-    okey[j] = max_key;
-    for (int w = 0; w < W; ++w) {
-      ox[o + w] = 0;
-      oy[o + w] = fq381::ONE(w);
-      oz[o + w] = 0;
-    }
-    return;
+    okey = max_key;
+    return kPad;
   }
   const int32_t i = srcpos[j];
-  const long long a = (long long)i * W;
-  okey[j] = key[i];
-  if (i + 1 < n && key[i + 1] == key[i]) {
-    fq381::point_add_lane(x + a, y + a, z + a, x + a + W, y + a + W, z + a + W, ox + o, oy + o,
-                          oz + o);
-  } else {
-    fq381::copy_words(ox + o, x + a);
-    fq381::copy_words(oy + o, y + a);
-    fq381::copy_words(oz + o, z + a);
+  okey = key[i];
+  row = i;
+  if (i + 1 >= n || key[i + 1] != key[i]) return kCopy;
+  if (z_is_zero(z + (long long)(i + 1) * W)) return kCopy;  // the right infinite
+  if (z_is_zero(z + (long long)i * W)) {                    // the left infinite
+    row = i + 1;
+    return kCopy;
   }
+  return kAdd;
+}
+
+// the counts of slots [first, first + items) of the tile's kinds (noted at
+// noted(s)), packed
+CM_HD uint32_t run_counts(const int32_t* kinds, int first, int items) {
+  uint32_t c = 0;
+  for (int s = first; s < first + items; ++s) {
+    const int32_t kind = kinds[noted(s)];
+    c += kind == kAdd ? 1u : kind == kCopy ? kCopyUnit : 0u;
+  }
+  return c;
+}
+
+// List slots [first, first + items) (kinds and rows noted at noted(s)):
+// additions from `before`'s low half on, copies from tile - copies +
+// `before`'s high half on, `copies` the tile's total; an entry is a slot of
+// the tile and its source row.
+CM_HD void list_run(const int32_t* kinds, const int32_t* rows, int first, int items,
+                    uint32_t before, int tile, int copies, int16_t* slot, int32_t* row) {
+  int a = (int)(before & (kCopyUnit - 1));
+  int c = tile - copies + (int)(before >> 16);
+  for (int s = first; s < first + items; ++s) {
+    const int32_t kind = kinds[noted(s)];
+    if (kind == kAdd) {
+      slot[a] = (int16_t)s;
+      row[a++] = rows[noted(s)];
+    } else if (kind == kCopy) {
+      slot[c] = (int16_t)s;
+      row[c++] = rows[noted(s)];
+    }
+  }
+}
+
+// Chunks q0 + b stride, b < B, of the tile's copies (those below 9 copies):
+// coordinate by coordinate, an entry's three 16-byte quarters on neighbouring
+// chunks, so neighbouring lanes move neighbouring bytes where the slots are
+// neighbours. All B loads are issued before the stores. `lo` is the tile's
+// first slot, the list's copies start at `at`.
+template <int B>
+CM_HD void copy_chunks(int q0, int stride, int copies, const int16_t* slot, const int32_t* row,
+                       int at, long long lo, const uint32_t* x, const uint32_t* y,
+                       const uint32_t* z, uint32_t* ox, uint32_t* oy, uint32_t* oz) {
+  constexpr int W = fq381::W;
+  const int per = 3 * copies;
+  Quad v[B];
+  Quad* to[B];
+#pragma unroll
+  for (int b = 0; b < B; ++b) {
+    const int q = q0 + b * stride;
+    to[b] = nullptr;
+    if (q < 3 * per) {
+      const int coord = q / per, r = q % per, e = at + r / 3, part = r % 3;
+      const uint32_t* src = coord == 0 ? x : coord == 1 ? y : z;
+      uint32_t* dst = coord == 0 ? ox : coord == 1 ? oy : oz;
+      v[b] = *(reinterpret_cast<const Quad*>(src + (long long)row[e] * W) + part);
+      to[b] = reinterpret_cast<Quad*>(dst + (lo + slot[e]) * W) + part;
+    }
+  }
+#pragma unroll
+  for (int b = 0; b < B; ++b) {
+    if (to[b] != nullptr) *to[b] = v[b];
+  }
+}
+
+// Chunk q of the pads [first, first + pads), q < 9 pads, laid out as copies
+CM_HD void pad_chunk(int q, int pads, long long first, uint32_t* ox, uint32_t* oy,
+                     uint32_t* oz) {
+  constexpr int W = fq381::W;
+  const int per = 3 * pads;
+  const int coord = q / per, r = q % per, part = r % 3;
+  uint32_t* dst = coord == 0 ? ox : coord == 1 ? oy : oz;
+  Quad v{0, 0, 0, 0};
+  if (coord == 1) {
+    const int w = 4 * part;
+    v = Quad{fq381::ONE(w), fq381::ONE(w + 1), fq381::ONE(w + 2), fq381::ONE(w + 3)};
+  }
+  *(reinterpret_cast<Quad*>(dst + (first + r / 3) * W) + part) = v;
+}
+
+// Addition e of the tile's list: the left at row[e] plus its right neighbour
+// into slot lo + slot[e]
+FQ_FN void add_entry(int e, const int16_t* slot, const int32_t* row, long long lo,
+                     const uint32_t* x, const uint32_t* y, const uint32_t* z, uint32_t* ox,
+                     uint32_t* oy, uint32_t* oz) {
+  constexpr int W = fq381::W;
+  const long long a = (long long)row[e] * W;
+  const long long o = (lo + slot[e]) * W;
+  fq381::point_add_lane(x + a, y + a, z + a, x + a + W, y + a + W, z + a + W, ox + o, oy + o,
+                        oz + o);
 }
 
 }  // namespace compact

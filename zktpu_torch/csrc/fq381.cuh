@@ -503,32 +503,4 @@ FQ_FN void point_add_lane(const uint32_t* __restrict__ x1, const uint32_t* __res
   store(oy, V);
 }
 
-// The window combine of one segment (zktpu/msm/pippenger.py:_horner_multi,
-// :448): acc = R_{W-1}, then acc = 2^c acc + R_w for w = W - 2 down to 0, where
-// R_w is window w of the segment's table (x, y, z: `windows` points of W words
-// each, canonical). A step is point_double_lane, c doublings, then
-// point_add_lane(acc, R_w); between the two the point goes through canonical
-// words in the thread's two buffers, as between two launches of the point
-// kernels, so the words are those of that chain of launches, lanes of no
-// meaning (P == -Q) included.
-FQ_FN void horner_lane(const uint32_t* __restrict__ x, const uint32_t* __restrict__ y,
-                       const uint32_t* __restrict__ z, int windows, int c,
-                       uint32_t* __restrict__ ox, uint32_t* __restrict__ oy,
-                       uint32_t* __restrict__ oz) {
-  alignas(16) uint32_t acc[3][W];
-  alignas(16) uint32_t dbl[3][W];
-  const long long top = (long long)(windows - 1) * W;
-  copy_words(acc[0], x + top);
-  copy_words(acc[1], y + top);
-  copy_words(acc[2], z + top);
-  for (int w = windows - 2; w >= 0; --w) {
-    const long long o = (long long)w * W;
-    point_double_lane(acc[0], acc[1], acc[2], dbl[0], dbl[1], dbl[2], c);
-    point_add_lane(dbl[0], dbl[1], dbl[2], x + o, y + o, z + o, acc[0], acc[1], acc[2]);
-  }
-  copy_words(ox, acc[0]);
-  copy_words(oy, acc[1]);
-  copy_words(oz, acc[2]);
-}
-
 }  // namespace fq381

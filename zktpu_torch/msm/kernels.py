@@ -5,9 +5,9 @@ zktpu compiles two steps of its Pippenger MSM (``zktpu/msm/pippenger.py``) into
 one XLA program each, around its Pallas point kernels: the compaction round
 ``_compact_round`` (:154, jitted at :289, with ``_max_run`` at :295) and the
 window combine ``_horner_multi`` (:448, jitted at :466). Here they are three
-hand-written CUDA kernels (``csrc/msm_kernels.cu``, on ``csrc/compact.cuh`` and
-``csrc/fq381.cuh``), each with a plain PyTorch version beside it that computes
-the same words:
+hand-written CUDA kernels (``csrc/msm_kernels.cu``, on ``csrc/compact.cuh``,
+``csrc/fq381.cuh`` and ``csrc/coop381.cuh``), each with a plain PyTorch version
+beside it that computes the same words:
 
   * ``run_scan``    -- over sorted int32 keys: each key's rank in its run of
                        equal keys, the positions of the survivors of a round
@@ -16,9 +16,16 @@ the same words:
   * ``compact_add`` -- the round itself: each survivor's point plus its right
                        neighbour's where the keys match, read where they lie,
                        under ``l_next`` slots padded with infinity and
-                       ``MAXKEY``;
+                       ``MAXKEY``; a block sorts a tile of slots into copies,
+                       pads and additions and runs each kind densely;
   * ``horner``      -- acc = ((R_{W-1} 2^c + R_{W-2}) 2^c + ...) over each
-                       segment's per-window sums, one chain a thread.
+                       segment's per-window sums; ``horner_groups`` takes
+                       several tables, each with its own c, in one launch (a
+                       proof's quotient commitments), a chain a block of 8
+                       cooperating lanes.
+
+``fq_mul_coop`` is the cooperative lanes' Montgomery product on its own, a
+check of their arithmetic on the card (no path runs it).
 
 ``run_scan`` and ``compact_add`` leave the survivor count on the device: a
 round needs no read-back. The plain versions are the port's earlier eager code:
@@ -35,9 +42,9 @@ raises.
 
 ``launches`` counts, per kernel, the wrapper calls that launched it, and
 ``lanes`` the keys (``run_scan``), slots (``compact_add``) or segments
-(``horner``) they covered; ``scan_slots`` sums ``run_scan``'s ``l_next``, and
-``chains`` splits ``horner``'s segments by (windows, c), what a chain's cost
-depends on.
+(``horner``: chains) they covered; ``scan_slots`` sums ``run_scan``'s
+``l_next``, and ``chains`` splits ``horner``'s segments by (windows, c), what a
+chain's cost depends on.
 """
 
 from __future__ import annotations
@@ -49,6 +56,7 @@ import torch
 from .. import _build
 from ..curve import device as dc
 from ..curve import point_kernels as pk
+from ..field import torch_backend as fb
 
 #: the key of a padding slot: above every (window, bucket) key of a group
 MAXKEY = 2**30
@@ -110,17 +118,34 @@ def _check_round(key, pt, srcpos, count):
     return fq, n, l_next
 
 
-def _check_windows(per_window, c):
+def _check_windows(per_window, c, device=None):
     if (not isinstance(per_window, (tuple, list)) or len(per_window) != 3
             or not isinstance(per_window[0], torch.Tensor)):
         raise TypeError("horner: expected an (X, Y, Z) triple of tensors")
+    if device is not None and per_window[0].device != device:
+        raise ValueError(f"horner: tables on {per_window[0].device} and {device}")
     fq = dc.fq_ctx(per_window[0].device)
     shape = pk._check_point(fq, "horner per_window", per_window)
     if len(shape) != 3:
         raise ValueError(f"horner: expected (segments, windows, 12) tables, got {shape}")
-    if not isinstance(c, int) or c < 1:
+    if not isinstance(c, int) or isinstance(c, bool) or c < 1:
         raise ValueError(f"horner: c must be an int >= 1, got {c!r}")
     return fq, shape[0], shape[1]
+
+
+def _check_groups(groups):
+    """A non-empty list of (per_window, c) on one device; returns their shapes
+    as (segments, windows, c)."""
+    if not isinstance(groups, (tuple, list)) or not groups:
+        raise TypeError("horner_groups: expected a non-empty list of (per_window, c)")
+    shapes, device = [], None
+    for group in groups:
+        if not isinstance(group, (tuple, list)) or len(group) != 2:
+            raise TypeError("horner_groups: each group is a (per_window, c) pair")
+        _, segments, windows = _check_windows(group[0], group[1], device)
+        device = group[0][0].device
+        shapes.append((segments, windows, group[1]))
+    return shapes
 
 
 # ----------------------------------------------------------------------
@@ -186,6 +211,55 @@ def horner_plain(per_window, c: int):
     return acc
 
 
+def horner_groups_plain(groups):
+    """``horner_plain`` of each (per_window, c) group: a list of (S_g, 12)
+    triples. Groups of one shape (windows and c) share one chain, their
+    segments side by side (a chain of eager calls costs the same at any
+    width)."""
+    shapes = _check_groups(groups)
+    kinds: dict[tuple[int, int], list[int]] = {}
+    for g, (_, windows, c) in enumerate(shapes):
+        kinds.setdefault((windows, c), []).append(g)
+    out = [None] * len(groups)
+    for (_, c), members in kinds.items():
+        acc = horner_plain(tuple(torch.cat([groups[g][0][i] for g in members])
+                                 for i in range(3)), c)
+        parts = [torch.split(v, [shapes[g][0] for g in members]) for v in acc]
+        for k, g in enumerate(members):
+            out[g] = tuple(p[k] for p in parts)
+    return out
+
+
+def chain_table(groups):
+    """The groups' window sums as one (rows, 12) table triple, and the chains
+    of the ``horner`` kernel: an int32 (chains, 3) table of each segment's first
+    row, windows and c, group after group."""
+    shapes = _check_groups(groups)
+    table = tuple(torch.cat([g[0][i].reshape(-1, g[0][i].shape[-1]) for g in groups])
+                  .contiguous() for i in range(3))
+    if table[0].shape[0] >= 1 << 31:
+        raise ValueError("horner_groups: 2^31 window rows or more")
+    chains, row = [], 0
+    for segments, windows, c in shapes:
+        chains += [(row + s * windows, windows, c) for s in range(segments)]
+        row += segments * windows
+    return table, torch.tensor(chains, dtype=torch.int32)
+
+
+def _check_factors(a, b):
+    fq = dc.fq_ctx(a.device)
+    shape = pk._check_point(fq, "fq_mul_coop", (a, b, b))
+    if len(shape) != 2:
+        raise ValueError(f"fq_mul_coop: expected (n, 12) tables, got {shape}")
+    return fq, shape[0]
+
+
+def fq_mul_coop_plain(a, b):
+    """Canonical a b / R over BLS12-381 Fq, (n, 12) Montgomery word tables."""
+    fq, _ = _check_factors(a, b)
+    return fb.mont_mul(fq, a, b)
+
+
 # ----------------------------------------------------------------------
 # the kernel library
 # ----------------------------------------------------------------------
@@ -196,8 +270,8 @@ _SIGNATURES = {
     "zk_run_scan": [_P, _LL, _P, _P, _LL, _P, _P, _P],
     "zk_compact_add": [_P, _P, _P, _P, _LL, _P, _P, _LL, ctypes.c_int, _P, _P, _P, _P, _P,
                        ctypes.c_uint32, _P],
-    "zk_horner": [_P, _P, _P, _LL, ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, ctypes.c_uint32,
-                  _P],
+    "zk_horner": [_P, _P, _P, _LL, _P, _LL, _P, _P, _P, _P, ctypes.c_uint32, _P],
+    "zk_fq_mul_coop": [_P, _P, _P, _LL, _P, ctypes.c_uint32, _P],
 }
 
 
@@ -253,8 +327,8 @@ def run_scan(key, l_next: int):
 
 
 def compact_add(key, pt, srcpos, count):
-    """``compact_add_plain``'s round; on the card one thread a slot, the count
-    read there."""
+    """``compact_add_plain``'s round; on the card one launch, a block a tile of
+    slots, the count read there."""
     fq, n, l_next = _check_round(key, pt, srcpos, count)
     if key.device.type == "cpu":
         return compact_add_plain(key, pt, srcpos, count)
@@ -275,20 +349,50 @@ def compact_add(key, pt, srcpos, count):
 
 
 def horner(per_window, c: int):
-    """``horner_plain``'s combine; on the card one launch, a thread a segment."""
-    fq, segments, num_windows = _check_windows(per_window, c)
-    if per_window[0].device.type == "cpu":
-        return horner_plain(per_window, c)
+    """``horner_plain``'s combine; on the card one launch, a chain a segment."""
+    _check_windows(per_window, c)
+    return horner_groups([(per_window, c)])[0]
+
+
+def horner_groups(groups):
+    """``horner_groups_plain``: the window combine of several (per_window, c)
+    groups, each (S_g, W_g, 12) with its own c; on the card all their chains in
+    one launch, a block of 8 cooperating lanes a chain."""
+    shapes = _check_groups(groups)
+    device = groups[0][0][0].device
+    if device.type == "cpu":
+        return horner_groups_plain(groups)
     lib = library()
-    device = per_window[0].device
-    out = tuple(torch.empty((segments, fq.num_words), dtype=torch.int32, device=device)
+    fq = dc.fq_ctx(device)
+    table, rows = chain_table(groups)
+    rows = rows.to(device)
+    n = rows.shape[0]
+    out = tuple(torch.empty((n, fq.num_words), dtype=torch.int32, device=device)
                 for _ in range(3))
     with torch.cuda.device(device):
-        err = lib.zk_horner(*(t.data_ptr() for t in per_window), segments, num_windows, c,
-                            *(t.data_ptr() for t in out), fq.p_words_c, fq.n0_prime32,
+        err = lib.zk_horner(*(t.data_ptr() for t in table), table[0].shape[0], rows.data_ptr(),
+                            n, *(t.data_ptr() for t in out), fq.p_words_c, fq.n0_prime32,
                             _stream(device))
     _raise_on(err, "horner")
     launches["horner"] += 1
-    lanes["horner"] += segments
-    chains[num_windows, c] = chains.get((num_windows, c), 0) + segments
+    lanes["horner"] += n
+    for segments, windows, c in shapes:
+        chains[windows, c] = chains.get((windows, c), 0) + segments
+    parts = [torch.split(v, [segments for segments, _, _ in shapes]) for v in out]
+    return [tuple(p[g] for p in parts) for g in range(len(groups))]
+
+
+def fq_mul_coop(a, b):
+    """``fq_mul_coop_plain``; on the card a group of 8 lanes a product,
+    coop381.cuh's arithmetic as ``horner`` runs it. Launch counts: none (a
+    check)."""
+    fq, n = _check_factors(a, b)
+    if a.device.type == "cpu":
+        return fq_mul_coop_plain(a, b)
+    lib = library()
+    out = torch.empty((n, fq.num_words), dtype=torch.int32, device=a.device)
+    with torch.cuda.device(a.device):
+        err = lib.zk_fq_mul_coop(a.data_ptr(), b.data_ptr(), out.data_ptr(), n, fq.p_words_c,
+                                 fq.n0_prime32, _stream(a.device))
+    _raise_on(err, "fq_mul_coop")
     return out

@@ -21,7 +21,9 @@ The counterpart of ``zktpu/msm/pippenger.py``, stage for stage:
 5. **Bucket reduction**: suffix sums T_j = sum_{k>=j} B_k by Kogge-Stone shifts,
    then sum_j T_j = sum_k k*B_k by a pairwise tree.
 6. **Window combine**: a Horner chain of c doublings and one addition a window,
-   the whole chain of every segment in one ``horner`` launch.
+   the whole chain of every segment in one ``horner`` launch; the chains of
+   several MSMs (``msm_pippenger_multi_batches``: a proof's quotient steps) in
+   one launch too.
 
 Eager PyTorch is staged by nature, one launch a stage at whatever width the
 stage has, so what the JAX package adds to keep its compiler's bill down has no
@@ -265,6 +267,18 @@ def msm_pippenger_multi(points, scalars_batch, c: int | None = None):
     if c is None:
         c = pick_window_bits_multi(*scalars_batch.shape[:2])
     return _horner_multi(_window_sums(points, scalars_batch, c), c)
+
+
+def msm_pippenger_multi_batches(jobs):
+    """Several ``msm_pippenger_multi`` calls, each ``(points, scalars_batch)``
+    at its own window width, whose window combines run together: one
+    ``horner`` launch for all their chains. Returns each call's Jacobian
+    (S, 12) triple, in order, the words ``msm_pippenger_multi`` gives."""
+    groups = []
+    for points, scalars_batch in jobs:
+        c = pick_window_bits_multi(*scalars_batch.shape[:2])
+        groups.append((tuple(v.contiguous() for v in _window_sums(points, scalars_batch, c)), c))
+    return mk.horner_groups(groups)
 
 
 def _window_sums(points, scalars_batch, c: int):

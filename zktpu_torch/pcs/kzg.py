@@ -49,7 +49,7 @@ from ..field import kernels as fk
 from ..field import torch_backend as fb
 from ..field.spec import BLS12_381_FR
 from ..msm import generator_comb_mul
-from ..msm.pippenger import msm_pippenger, msm_pippenger_multi
+from ..msm.pippenger import msm_pippenger, msm_pippenger_multi, msm_pippenger_multi_batches
 from ..parallel import context as pctx
 from ..parallel import mesh as pm
 from ..poly.multilinear import MultilinearPoly, tensor_op
@@ -170,18 +170,20 @@ class KZG:
 
     def _commit_quotients(self, *openings) -> list:
         """Commit the quotient lists of S openings: at step k the S quotients
-        share ``collapsed_bases()[k]`` and ride one batched MSM, segment-sharded
-        under an active mesh whose slots the S segments of 2^(n-1-k) entries
-        give enough rows. Returns S lists of n host points."""
+        share ``collapsed_bases()[k]`` and ride one batched MSM; on one device
+        the n steps' window combines run in one launch, and under an active
+        mesh a step whose S segments of 2^(n-1-k) entries give its slots enough
+        rows is segment-sharded. Returns S lists of n host points."""
         bases = self.collapsed_bases()
         mesh = pctx.current_mesh()
-        steps = []
-        for k in range(self.num_vars):
-            stacked = torch.stack([q[k] for q in openings])
-            if mesh is not None and pctx.shardable(stacked.shape[0] * stacked.shape[1], mesh):
-                steps.append(pm.msm_pippenger_multi_sharded(mesh, bases[k], stacked))
-            else:
-                steps.append(msm_pippenger_multi(bases[k], stacked))
+        stacked = [torch.stack([q[k] for q in openings]) for k in range(self.num_vars)]
+        if mesh is None:
+            steps = msm_pippenger_multi_batches(list(zip(bases, stacked)))
+        else:
+            steps = [pm.msm_pippenger_multi_sharded(mesh, base, batch)
+                     if pctx.shardable(batch.shape[0] * batch.shape[1], mesh)
+                     else msm_pippenger_multi(base, batch)
+                     for base, batch in zip(bases, stacked)]
         # (n, S, 12) -> host points, opening by opening
         flat = dc.unpack_points(
             tuple(torch.stack([s[i] for s in steps], dim=1).contiguous() for i in range(3))
