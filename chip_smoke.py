@@ -83,7 +83,7 @@ Then (14) each of the four paths runs once more under ``torch.profiler``, and
 the fourteen kernels are ranked by their device time on the paths less the
 bound of the lanes they covered there; on each path the device runs one kernel
 a launch of ``halves_sums``, ``fold_and_halves``, ``round_step``, ``keccak_f``,
-``compact_add`` and ``horner``, three of ``run_scan``, a ``round_step`` a round,
+``compact_add`` and ``horner``, two of ``run_scan``, a ``round_step`` a round,
 no ``keccak_f``, a ``finish_rows`` only after ``gkr_round`` (none on the
 sumcheck path), and no device kernel of ``torch.cummax`` or
 ``torch.searchsorted`` (named as a profile of each op on the card shows them),
@@ -126,7 +126,7 @@ or the script fails. Last,
      thread's least time.
  18. the MSM kernels: ``run_scan`` against its plain version at 1, 2, 3 and
      from 127 to 2^24 keys (random runs, all equal, all distinct, runs that
-     cross the scan's tiles and blocks, MAXKEY tails; ``l_next`` below, at and
+     cross the scan's tiles, MAXKEY tails; ``l_next`` below, at and
      above the survivor count), ``compact_add`` on the same keys (tiles of
      additions only, of copies only, of pads) at every width, with equal,
      opposite and infinite neighbours planted, ``horner`` at 1, 2 and 4
@@ -450,17 +450,25 @@ def gkr_proof_digest(spec, layers_proof) -> str:
     return hk.keccak256(vec_to_bytes(spec, gkr_proof_values(layers_proof))).hex()
 
 
+def template_args(mangled: str) -> list[str]:
+    """The int, bool and enum arguments of a mangled template argument list:
+    ``Li3ELb0ELN2ns4KindE1E`` -> ["3", "false", "1"]."""
+    return [("false", "true")[int(v)] if kind == "b" else v
+            for kind, v in re.findall(r"L(i|b|N[^E]*E)(\d+)E", mangled)]
+
+
 def resource_usage(log: str, needle: str) -> list[str]:
     """What ``nvcc --resource-usage`` printed for the kernels whose mangled name
-    holds ``needle``: the template's word count where it has one, then ptxas's
-    own two lines."""
+    holds ``needle``: the template's arguments where it has them (``<W=8>`` for
+    the summing kernels' word count), then ptxas's own two lines."""
     lines = log.splitlines()
     out = []
     for i, line in enumerate(lines):
         if "Function properties for" in line and needle in line:
             label = needle
-            if needle + "ILi" in line:
-                label += "<W=" + line.split(needle + "ILi")[1].split("E")[0] + ">"
+            if needle + "I" in line:
+                args = template_args(line.split(needle + "I", 1)[1].split("EE", 1)[0] + "E")
+                label += f"<W={args[0]}>" if len(args) == 1 else "<" + ", ".join(args) + ">"
             out.append(f"{label}: {lines[i + 1].strip()}; "
                        f"{lines[i + 2].split(':', 1)[1].strip()}")
     return out
@@ -1665,8 +1673,9 @@ def all_lanes() -> dict[str, int]:
     return {**fk.lanes, **pk.lanes, **nk.lanes, **tk.lanes, **mk.lanes}
 
 
-#: run_scan's three device kernels, one of each a launch
-SCAN_PASSES = ("run_scan_reduce", "run_scan_blocks", "run_scan_apply")
+#: run_scan's two device kernels, one of each a launch: the one pass over the
+#: keys, and the fill of the slots past the count
+SCAN_PASSES = ("run_scan_tiles", "run_scan_fill")
 #: what the device kernels of torch.cummax and torch.searchsorted have in their
 #: names (``scan_op_kernels`` checks it on the card's PyTorch)
 SCAN_OP_NEEDLES = {"cummax": "_with_indices", "searchsorted": "searchsorted"}
@@ -1708,33 +1717,57 @@ def scan_op_runs(kernel_names: dict[str, int]) -> dict[str, int]:
             for op, needle in SCAN_OP_NEEDLES.items()}
 
 
+#: seconds that a profile's window stays open before and after the profiled
+#: run. The tracer keeps only the device records whose times, on its clock,
+#: fall inside its window; late in this process a profile of the mesh path has
+#: come up a few MSM records short at a time (2 of 667 compact_add, 1 of 57
+#: horner), as if its clock had drifted from the host's past the edge of a
+#: window closed at once. ``edges_ms`` reports how far the first record starts
+#: after the run began and the last ends before the run's end, on the host's
+#: clock.
+PROFILE_PAD_S = 0.5
+#: profiles of the mesh path taken at most, while the tracer's counts only fall
+#: short of the launches
+PROFILE_TRIES = 3
+
+
 def profile_path(fn) -> dict:
     """Run ``fn`` once under torch.profiler (device activity only): its
     launches, lanes and point doublings by kernel, and the device milliseconds
     of each kernel, summed by the device function's name (``finish_rows``, the
-    second pass of the three summing kernels, and run_scan's three passes
-    apart; run_scan's time is its passes' sum), and the device kernels of
-    torch.cummax and torch.searchsorted that ran."""
+    second pass of the three summing kernels, and run_scan's two kernels
+    apart; run_scan's time is their sum), and the device kernels of
+    torch.cummax and torch.searchsorted that ran. The window opens
+    PROFILE_PAD_S before the run and closes PROFILE_PAD_S after it;
+    ``seconds`` is the run's own."""
     from torch.profiler import ProfilerActivity, profile
 
     reset_all_launches()
     torch.cuda.synchronize()
     t0 = time.time()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_PAD_S)
+        start_ns = time.time_ns()
         fn()
         torch.cuda.synchronize()
-    t_run = time.time() - t0
+        end_ns = time.time_ns()
+        time.sleep(PROFILE_PAD_S)
+    t_run = (end_ns - start_ns) / 1e9
     names = (fk.KERNEL_NAMES + pk.KERNEL_NAMES + nk.KERNEL_NAMES + tk.KERNEL_NAMES
              + mk.KERNEL_NAMES + ("finish_rows",) + SCAN_PASSES)
     device_ms = {name: 0.0 for name in names}
     device_n = {name: 0 for name in names}
     pattern = re.compile(r"\b(" + "|".join(names) + r")_kernel\b")
     kernel_names: dict[str, int] = {}
+    first_ns, last_ns = None, None
     # the raw events, not key_averages(): a path launches up to some 600,000
     # kernels, and building the averaged tree takes minutes
     for e in prof.profiler.kineto_results.events():
         if e.device_type().name == "CUDA":
             name = e.name()
+            begin, end = e.start_ns(), e.start_ns() + e.duration_ns()
+            first_ns = begin if first_ns is None else min(first_ns, begin)
+            last_ns = end if last_ns is None else max(last_ns, end)
             kernel_names[name] = kernel_names.get(name, 0) + 1
             found = pattern.search(name)
             if found:
@@ -1744,18 +1777,39 @@ def profile_path(fn) -> dict:
     return {"launches": all_launches(), "lanes": all_lanes(), "doublings": pk.doublings,
             "rounds": dict(tk.rounds), "scan_slots": mk.scan_slots, "chains": dict(mk.chains),
             "device_ms": device_ms, "device_n": device_n, "scan_ops": scan_op_runs(kernel_names),
-            "seconds": t_run, "total_s": time.time() - t0}
+            "seconds": t_run, "total_s": time.time() - t0,
+            "edges_ms": (None if first_ns is None else
+                         ((first_ns - start_ns) / 1e6, (end_ns - last_ns) / 1e6))}
+
+
+def edges(p: dict) -> str:
+    """How far inside the profiled run its device records lie, on the host's
+    clock (``profile_path``'s ``edges_ms``)."""
+    if p["edges_ms"] is None:
+        return "no device records"
+    head, tail = p["edges_ms"]
+    return (f"device records from {head:.3f} ms after the run's start to {tail:.3f} ms before "
+            f"its end, host clock")
+
+
+def msm_launch_faults(path: str, p: dict) -> list[str]:
+    """Where a profile breaks check_msm_launches' rule."""
+    ran, launched = p["device_n"], p["launches"]
+    faults = []
+    for name in ("compact_add", "horner") + SCAN_PASSES:
+        want = launched["run_scan" if name in SCAN_PASSES else name]
+        if ran[name] != want:
+            faults.append(f"{path}: {ran[name]} {name} kernels ran for {want} launches")
+    if any(p["scan_ops"].values()):
+        faults.append(f"{path} ran torch.cummax or torch.searchsorted kernels: {p['scan_ops']}")
+    return faults
 
 
 def check_msm_launches(path: str, p: dict) -> None:
     """compact_add and horner are one device kernel a wrapper launch, run_scan
-    one of each of its three passes; no cummax or searchsorted kernel runs."""
-    ran, launched = p["device_n"], p["launches"]
-    for name in ("compact_add", "horner") + SCAN_PASSES:
-        want = launched["run_scan" if name in SCAN_PASSES else name]
-        check(ran[name] == want, f"{path}: {ran[name]} {name} kernels ran for {want} launches")
-    check(not any(p["scan_ops"].values()),
-          f"{path} ran torch.cummax or torch.searchsorted kernels: {p['scan_ops']}")
+    one of each of its two kernels; no cummax or searchsorted kernel runs."""
+    faults = msm_launch_faults(path, p)
+    check(not faults, "; ".join(faults))
 
 
 def check_one_launch(profiles: dict[str, dict]) -> None:
@@ -1793,11 +1847,11 @@ def check_one_launch(profiles: dict[str, dict]) -> None:
               f"profiled sumcheck: {sumcheck['launches'][name]} {name} launches")
     check(sumcheck["device_n"]["finish_rows"] == 0, "finish_rows ran on the sumcheck path")
     say("  one device kernel a launch of halves_sums, fold_and_halves, round_step, keccak_f, "
-        "compact_add and horner on every path, three of run_scan, finish_rows only after "
+        "compact_add and horner on every path, two of run_scan, finish_rows only after "
         "gkr_round, no cummax or searchsorted kernel: " + ", ".join(
             f"{path} {p['device_n']['halves_sums']} + {p['device_n']['fold_and_halves']}, "
             f"round_step {p['device_n']['round_step']}, finish_rows {p['device_n']['finish_rows']}, "
-            f"run_scan passes {[p['device_n'][name] for name in SCAN_PASSES]}, compact_add "
+            f"run_scan kernels {[p['device_n'][name] for name in SCAN_PASSES]}, compact_add "
             f"{p['device_n']['compact_add']}, horner {p['device_n']['horner']}, "
             f"scan ops {p['scan_ops']}" for path, p in profiles.items()))
 
@@ -1836,7 +1890,8 @@ def print_ranking(kernels: list[dict], profiles: dict[str, dict]) -> list[dict]:
         + ", ".join(f"{path} {p['device_n']['finish_rows']}" for path, p in profiles.items())
         + ")")
     say("  by path: " + "; ".join(
-        f"{path} ({p['seconds']:.1f}s profiled, {p['total_s']:.1f}s with the summary): "
+        f"{path} ({p['seconds']:.1f}s profiled, {p['total_s']:.1f}s with the summary; "
+        f"{edges(p)}): "
         + ", ".join(f"{n} {v:.2f}" for n, v in p["device_ms"].items() if v)
         for path, p in profiles.items()))
     ranked = sorted(kernels, key=lambda k: -k["launches"] * (k["ms"] - k["bound_ms"]))
@@ -2220,12 +2275,25 @@ def phase_mesh_paths(ctx, gctx, rctx, sum_proof, circuit, inputs, taus, gkr_blob
         if label == "4-slot":
             # its sharded commitment and segment-sharded quotient MSMs once more,
             # under the profiler (not counted above)
-            prof = profile_path(lambda: gkr.prove(circuit, inputs, taus=taus, mesh=mesh))
-            check_msm_launches("gkr.prove(mesh=...)", prof)
+            # Late in this process the tracer has dropped a few of this run's
+            # several hundred thousand kernel records (see PROFILE_PAD_S): a
+            # profile whose counts only fall short of the launches is taken
+            # again, up to PROFILE_TRIES in all, and the last must hold exactly
+            for attempt in range(1, PROFILE_TRIES + 1):
+                prof = profile_path(lambda: gkr.prove(circuit, inputs, taus=taus, mesh=mesh))
+                faults = msm_launch_faults("gkr.prove(mesh=...)", prof)
+                short = not any(prof["scan_ops"].values()) and all(
+                    prof["device_n"][name] <= prof["launches"]["run_scan" if name in SCAN_PASSES
+                                                               else name]
+                    for name in ("compact_add", "horner") + SCAN_PASSES)
+                if not (faults and short) or attempt == PROFILE_TRIES:
+                    break
+                say(f"  profile {attempt} fell short ({edges(prof)}): {faults}")
+            check(not faults, "; ".join(faults) + f" ({edges(prof)})")
             say(f"  gkr.prove(mesh=...) under the profiler: run_scan {prof['launches']['run_scan']}, "
                 f"compact_add {prof['launches']['compact_add']}, horner "
-                f"{prof['launches']['horner']} launches, one device kernel each (run_scan three); "
-                f"cummax and searchsorted kernels {prof['scan_ops']}")
+                f"{prof['launches']['horner']} launches, one device kernel each (run_scan two); "
+                f"cummax and searchsorted kernels {prof['scan_ops']}; {edges(prof)}")
         mesh_times(mesh, ctx, rctx, poly, ntt_outputs, basis, scalars)
         del poly, basis, scalars
         torch.cuda.empty_cache()
@@ -2388,8 +2456,8 @@ def phase_transcript_kernels() -> tuple[dict[str, int], dict[str, dict]]:
 SCAN_CHECK_WIDTHS = (1, 2, 3, 127, 128, 129, 4095, 4096, 4097, 1 << 16, (1 << 16) + 1, 1 << 20,
                      1 << 24)
 COMPACT_CHECK_TOP = 1 << 20
-#: run lengths of the key set whose runs cross the scan's tiles (16 keys) and
-#: blocks (4096 keys)
+#: run lengths of the key set whose runs cross the scan's threads' runs (16
+#: keys) and its tiles (4096 keys)
 CROSSING_RUNS = (1, 2, 3, 15, 16, 17, 31, 33, 4095, 4096, 4097, 8193)
 #: horner against its plain version: segments, window widths, points a segment;
 #: below c = 16 over the most significant windows only (a plain chain is some
@@ -2527,11 +2595,24 @@ def check_scan_and_round(rng, pool) -> dict[str, int]:
                 rounds += 1
                 del pt
         del points
+    # again from 1 key up, after the widest launch: each launch now finds the
+    # scratch (its tiles' state) larger than it needs and left by a launch
+    # over other tiles
+    again = 0
+    for n in SCAN_CHECK_WIDTHS[:-1]:
+        for name, key in scan_key_sets(rng, n, fq.device).items():
+            l_next = int(mk.run_scan_plain(key, 1)[1]) + 1
+            err = max(max_abs_err(g, w) for g, w in zip(mk.run_scan(key, l_next),
+                                                         mk.run_scan_plain(key, l_next)))
+            check(err == 0, f"run_scan differs from its plain version ({name}, {n} keys, "
+                  f"l_next {l_next}, after wider launches)")
+            errs["run_scan"] = max(errs["run_scan"], err)
+            again += 1
     torch.cuda.synchronize()
     say(f"  run_scan == its plain version in {cases} cases ({len(SCAN_CHECK_WIDTHS)} widths from 1 "
-        f"to {max(SCAN_CHECK_WIDTHS)} keys, five key sets, l_next below, at and above the count); "
-        f"compact_add in {rounds} rounds, the same keys, {planted} planted neighbours (equal, "
-        f"opposite, infinite)")
+        f"to {max(SCAN_CHECK_WIDTHS)} keys, five key sets, l_next below, at and above the count) "
+        f"and in {again} more from 1 key up after them; compact_add in {rounds} rounds, the same "
+        f"keys, {planted} planted neighbours (equal, opposite, infinite)")
     return errs
 
 
@@ -2784,6 +2865,8 @@ def main() -> int:
                 say(f"    {line}")
                 if stem != "sumcheck_kernels" or "<W=8>" in line:  # W = 12: no path runs it
                     check("0 bytes spill stores" in line, f"{line.split(':')[0]} spills registers")
+                if needle == "round_step_kernel":
+                    check("0 bytes stack frame" in line, f"{line.split(':')[0]} has a stack frame")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     lib = fk.library()
     for name in fk._SUMMING:

@@ -5,10 +5,12 @@
 round (``KECCAK_ROUND_OPS``: every logical function of up to three inputs one
 LOP3 a 32-bit half, a 64-bit rotation two funnel shifts). This script builds
 ``csrc/transcript_kernels.cu``, disassembles its library with ``cuobjdump``
-and, for ``keccak_f_kernel`` and ``round_step_kernel``, prints the opcode
-counts of the whole function and of each loop (the instructions from a
-backward branch's target to the branch), so the round loop's body can be read
-against the model. Needs the CUDA toolkit; no card is used beyond the build:
+and, for ``keccak_f_kernel`` and each instantiation of ``round_step_kernel``
+(rows, first round or not, and where a tree has it the permutation's
+variant), prints the opcode counts of the whole function and of each loop
+(the instructions from a backward branch's target to the branch), so the
+permutation can be read against the model: unrolled, it has no loop, and pi's
+renaming of the lanes costs no MOV. Needs the CUDA toolkit; no card is used beyond the build:
 
     python3 scripts/keccak_sass.py [--dump FILE]
 
@@ -88,14 +90,15 @@ def main() -> int:
             f.write(sass)
     print(f"model: {roofline.KECCAK_ROUND_OPS} instructions a round, "
           f"{roofline.KECCAK_F_OPS} a permutation (utils/roofline.py)")
-    found = 0
+    found = set()
     insns_of, labels = functions(sass)
     for name, insns in insns_of.items():
         kernel = next((k for k in KERNELS if k in name), None)
         if kernel is None:
             continue
-        found += 1
-        print(f"{kernel}: {histogram(insns)}")
+        found.add(kernel)
+        args = re.findall(r"L(?:i|b|N[^E]*E)(\d+)E", name.split(kernel, 1)[1].split("EE", 1)[0] + "E")
+        print(f"{kernel}{'<' + ', '.join(args) + '>' if args else ''}: {histogram(insns)}")
         for addr, insn in insns:
             target = _TARGET.search(insn)
             if not target:
@@ -105,8 +108,8 @@ def main() -> int:
             if start is not None and start < addr:
                 body = [(a, i) for a, i in insns if start <= a <= addr]
                 print(f"  loop {start:#06x}-{addr:#06x}: {histogram(body)}")
-    if found != len(KERNELS):
-        print(f"found {found} of the kernels {KERNELS} in the SASS", file=sys.stderr)
+    if found != set(KERNELS):
+        print(f"found {sorted(found)} of the kernels {KERNELS} in the SASS", file=sys.stderr)
         return 1
     return 0
 

@@ -5,11 +5,11 @@ Run on a machine with one CUDA device, from the root of a tree of the repo:
 
     python3 scripts/time_kernels.py TAG [PART ...]
 
-PART is one of ``gkr``, ``ntt``, ``sums``, ``msm`` (default: all four). It
-prints, on lines that start with TAG:
+PART is one of ``gkr``, ``ntt``, ``sums``, ``msm``, ``transcript`` (default:
+all five). It prints, on lines that start with TAG:
 
-  * the registers ``nvcc`` gave ``ntt_phase1``, ``gkr_round``, ``halves_sums``
-    and ``fold_and_halves``;
+  * the registers ``nvcc`` gave ``ntt_phase1``, ``gkr_round``, ``halves_sums``,
+    ``fold_and_halves``, the MSM kernels and the transcript kernels;
   * ``gkr``: ``gkr_round`` at every size from 2 to 2^24 entries (a BLS12-381 Fr
     stack): the device microseconds of one call by ``torch.profiler``, the
     kernel and its ``finish_rows`` pass apart (at real widths most calls are
@@ -29,14 +29,21 @@ prints, on lines that start with TAG:
     dtype=torch.int64)`` on the same bytes, a library reduction's rate (signed
     columns: not the same function);
   * ``msm``: on the KZG path of the 2^20-input GKR proof (``chip_smoke``'s
-    inputs and taus, a random opening point), ``compact_add`` on the
-    commitment MSM's first compaction round (2^24 keys) and a steady one, and
-    on quotient step 0's first round; ``horner`` on each of the proof's chain
+    inputs and taus, a random opening point), ``run_scan`` and ``compact_add``
+    on the commitment MSM's first compaction round (2^24 keys) and a steady
+    one, and on quotient step 0's first round (``run_scan`` held against its
+    plain version first, and its device kernels' microseconds apart); ``horner`` on each of the proof's chain
     shapes (the commitment's, and two segments at each quotient step's c) and
     on the whole quotient commit (every step's chains: a launch a step, and
     one ``horner_groups`` launch where the tree has it): median ms of 20
     launches by CUDA events, L2 flushed before each, and the registers of the
-    two kernels. ``scripts/profile_prove.py --kzg`` gives the path's stages.
+    two kernels. ``scripts/profile_prove.py --kzg`` gives the path's stages;
+  * ``transcript``: ``round_step`` on a steady GKR round (BLS12-381 Fr, 3 rows),
+    a steady sumcheck round (BN254 Fq, 2 rows) and a GKR phase's first round
+    of two blocks (a 16-lane tail), as ``chip_smoke.py`` phase 17 times them,
+    each held against its plain version first, and ``keccak_f`` on one state
+    and on 4096: the device microseconds of a launch by the profiler's clock,
+    median of 200 (20 at 4096 states).
 
 The warm 2^20 prove is compared between trees by ``scripts/ab_prove.py``, in
 one process. To compare two trees, copy this script into both and run it from each, one
@@ -60,6 +67,7 @@ from zktpu_torch.curve import point_kernels as pk  # noqa: E402
 from zktpu_torch.field import kernels as fk  # noqa: E402
 from zktpu_torch.field import torch_backend as fb  # noqa: E402
 from zktpu_torch.field.spec import BLS12_381_FQ, BLS12_381_FR, BN254_FQ, BN254_FR  # noqa: E402
+from zktpu_torch.hash import kernels as tk  # noqa: E402
 from zktpu_torch.msm import kernels as mk  # noqa: E402
 from zktpu_torch.msm import pippenger as pp  # noqa: E402
 from zktpu_torch.ntt import ntt_kernels as nk  # noqa: E402
@@ -67,7 +75,12 @@ from zktpu_torch.pcs.kzg import KZG  # noqa: E402
 from zktpu_torch.poly.multilinear import MultilinearPoly  # noqa: E402
 
 RUNS = 20
-PARTS = ("gkr", "ntt", "sums", "msm")
+PARTS = ("gkr", "ntt", "sums", "msm", "transcript")
+#: round_step's shapes on the paths: (label, field, rows, pending tail lanes or
+#: None for a steady round)
+ROUND_SHAPES = (("steady GKR round", BLS12_381_FR, 3, None),
+                ("steady sumcheck round", BN254_FQ, 2, None),
+                ("GKR first round, two blocks", BLS12_381_FR, 3, 16))
 
 
 def device_us(fn, kernel: str, reps: int) -> tuple[float, float]:
@@ -88,6 +101,26 @@ def device_us(fn, kernel: str, reps: int) -> tuple[float, float]:
             elif "finish_rows_kernel" in e.name():
                 finish += e.duration_ns()
     return own / reps / 1e3, finish / reps / 1e3
+
+
+def kernel_us(fn, needle: str, reps: int = 10) -> dict[str, float]:
+    """Device microseconds of one call of ``fn`` by the profiler, averaged over
+    ``reps`` calls, for each device kernel whose name holds ``needle`` (by its
+    name up to ``_kernel``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out: dict[str, float] = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type().name == "CUDA" and needle in e.name():
+            name = e.name().split("_kernel")[0].split("::")[-1]
+            out[name] = out.get(name, 0.0) + e.duration_ns() / reps / 1e3
+    return out
 
 
 def gkr_round_sizes(tag: str) -> None:
@@ -209,6 +242,18 @@ def first_round(points, scalars_batch, c: int):
     return skey, pt, pp._compaction_schedule(skey.shape[0], wg * nbuck + 1)
 
 
+def time_run_scan(flush, skey, l_next: int) -> str:
+    """run_scan on one round, held against its plain version first: CUDA events
+    (median, L2 flushed) and the device microseconds of each of its kernels."""
+    got, want = mk.run_scan(skey, l_next), mk.run_scan_plain(skey, l_next)
+    cs.check(all(torch.equal(g, w) for g, w in zip(got, want)),
+             f"run_scan differs from its plain version on {skey.shape[0]} keys")
+    ms = cs.time_events(lambda: mk.run_scan(skey, l_next), RUNS, flush)
+    split = " + ".join(f"{name} {us:.2f}" for name, us in
+                       kernel_us(lambda: mk.run_scan(skey, l_next), "run_scan").items())
+    return f"{skey.shape[0]} keys -> {l_next} slots {ms:.4f} ms (device us {split})"
+
+
 def time_compact_add(flush, skey, pt, l_next: int) -> str:
     scan = mk.run_scan(skey, l_next)
     ms = cs.time_events(lambda: mk.compact_add(skey, pt, *scan[:2]), RUNS, flush)
@@ -229,17 +274,21 @@ def msm_kernels(tag: str) -> None:
     quotients = kzg._quotients(kzg.open(point, poly), point, poly)
     bases = kzg.collapsed_bases()
 
-    out = []
+    out, scans = [], []
     c = pp.pick_window_bits(1 << n)
     skey, pt, sizes = first_round(kzg.g1_lagrange_basis, scalars[None], c)
+    scans.append("commitment first round " + time_run_scan(flush, skey, sizes[0]))
     out.append("commitment first round " + time_compact_add(flush, skey, pt, sizes[0]))
     for l_next in sizes:
         skey, pt = pp._compact_round(skey, pt, l_next)
+    scans.append("commitment steady round " + time_run_scan(flush, skey, sizes[-1]))
     out.append("commitment steady round " + time_compact_add(flush, skey, pt, sizes[-1]))
     stack0 = torch.stack([quotients[0], quotients[0].flip(0)])
     skey, pt, sizes = first_round(bases[0], stack0, pp.pick_window_bits_multi(*stack0.shape[:2]))
+    scans.append("quotient step 0 first round " + time_run_scan(flush, skey, sizes[0]))
     out.append("quotient step 0 first round " + time_compact_add(flush, skey, pt, sizes[0]))
     del skey, pt
+    print(f"{tag} run_scan ms: " + "; ".join(scans), flush=True)
     print(f"{tag} compact_add ms: " + "; ".join(out), flush=True)
 
     per_window = tuple(v.contiguous() for v in pp._window_sums(kzg.g1_lagrange_basis,
@@ -263,6 +312,28 @@ def msm_kernels(tag: str) -> None:
     print(f"{tag} horner ms: " + "; ".join(out), flush=True)
 
 
+def transcript_kernels(tag: str) -> None:
+    """round_step at ROUND_SHAPES and keccak_f (see the module's docstring)."""
+    rng = np.random.default_rng(17)
+    out = []
+    for label, spec, k, tail in ROUND_SHAPES:
+        ctx = fb.get_ctx(spec)
+        rows, state, tail_lanes = cs.round_check_inputs(ctx, rng, k, tail, 3)
+        got = tk.round_step(ctx, rows, state, tail_lanes)
+        want = tk.round_step_plain(ctx, rows, state, tail_lanes)
+        cs.check(all(torch.equal(g, w) for g, w in zip(got, want)),
+                 f"round_step differs from its plain version on a {label}")
+        us = cs.device_ms(lambda: tk.round_step(ctx, rows, state, tail_lanes), "round_step") * 1e3
+        out.append(f"{label} {us:.3f} us")
+    for states, runs in ((1, 200), (4096, 20)):
+        x = cs.random_lanes(rng, 25 * states, torch.device("cuda")).reshape(states, 25)
+        cs.check(torch.equal(tk.keccak_f(x), tk.keccak_f_plain(x)),
+                 f"keccak_f differs from its plain version on {states} states")
+        us = cs.device_ms(lambda: tk.keccak_f(x), "keccak_f", runs) * 1e3
+        out.append(f"keccak_f {states} state(s) {us:.3f} us")
+    print(f"{tag} transcript, device us a launch: " + "; ".join(out), flush=True)
+
+
 def main() -> int:
     parts = sys.argv[2:] or list(PARTS)
     if not torch.cuda.is_available() or len(sys.argv) < 2 or not set(parts) <= set(PARTS):
@@ -271,22 +342,26 @@ def main() -> int:
         return 1
     tag = sys.argv[1]
     _build.build_cuda_libraries(["sumcheck_kernels", "point_kernels", "ntt_kernels",
-                                 "msm_kernels"])
+                                 "msm_kernels", "transcript_kernels"])
     fk.library()
     nk.library()
     pk.library()
     mk.library()
+    tk.library()
     usage = []
     for stem, needle in (("ntt_kernels", "ntt_phase1_kernel"),
                          ("sumcheck_kernels", "gkr_round_kernel"),
                          ("sumcheck_kernels", "halves_sums_kernel"),
                          ("sumcheck_kernels", "fold_and_halves_kernel"),
+                         ("msm_kernels", "run_scan"),
                          ("msm_kernels", "compact_add_kernel"),
-                         ("msm_kernels", "horner_kernel")):
+                         ("msm_kernels", "horner_kernel"),
+                         ("transcript_kernels", "round_step_kernel"),
+                         ("transcript_kernels", "keccak_f_kernel")):
         usage += cs.resource_usage(_build.build_log[stem], needle)
     print(f"{tag} " + " | ".join(usage), flush=True)
     for part, fn in (("gkr", gkr_round_sizes), ("ntt", ntt_and_points), ("sums", sums_sizes),
-                     ("msm", msm_kernels)):
+                     ("msm", msm_kernels), ("transcript", transcript_kernels)):
         if part in parts:
             fn(tag)
     print(cs.gpu_line(), flush=True)

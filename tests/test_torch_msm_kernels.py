@@ -10,11 +10,14 @@ arithmetic), on inputs made from numpy seeds:
     and ``_max_run``, on keys of 1, 2 and 3 entries, random runs, all equal, all
     distinct, runs of every length from 1 to 17 across tile edges and
     ``MAXKEY`` tails, with ``l_next`` below, at and above the survivor count;
-  * the scan's own code, ``csrc/compact.cuh`` built with g++, run in the three
-    passes of the kernel (each block's tiles reduced as a tree, the blocks'
-    aggregates scanned in chunks, each tile applied from its prefix) with tiles
-    of 4 to 8 keys, so that runs cross one, two and many tiles and blocks,
-    against ``run_scan_plain``;
+  * the scan's own code, ``csrc/compact.cuh`` built with g++, run in the one
+    pass of the kernel (a tile's keys noted as in shared memory, its threads'
+    aggregates scanned on each warp's lanes, fibers that meet at a barrier for
+    each shuffle, the look-back on a warp's lanes, the survivors
+    staged) with tiles of 4 to 24 keys, so that runs cross one, two and many
+    tiles, the tiles' steps in a shuffled order (a look-back meets
+    predecessors with only an aggregate, or none yet), against
+    ``run_scan_plain``;
   * ``compact_add_plain`` after ``run_scan_plain`` against zktpu's
     ``_compact_round`` on 16 keys whose runs meet the doubling branch, an
     infinite operand on either side, P == -Q, a lone left and padding keys, in
@@ -22,8 +25,8 @@ arithmetic), on inputs made from numpy seeds:
     ``compact_add_plain`` with ``l_next`` below, at and above the count;
   * ``horner_plain`` against zktpu's ``_horner_multi`` at two segments, three
     windows, c = 4, infinities mixed in; the kernel's chain (``coop381.cuh``
-    built with g++, a group's lanes host threads that meet at a barrier for
-    each shuffle and vote) against ``horner_plain``;
+    built with g++, a group's lanes fibers of one host thread that meet at a
+    barrier for each shuffle and vote) against ``horner_plain``;
   * ``horner_groups_plain`` against zktpu's ``_horner_multi`` group by group,
     on ragged groups of c = 4, 8 and 16, one and two segments, infinite
     windows; the kernel's blocks over ``chain_table``'s rows, a chain on a
@@ -76,7 +79,7 @@ fq = dc.fq_ctx("cpu")
 
 HARNESS = r"""
 #include <algorithm>
-#include <thread>
+#include <functional>
 #include <vector>
 
 #include "compact.cuh"
@@ -86,107 +89,188 @@ using compact::Agg;
 
 namespace {
 
-// inclusive scan of s, in order, as the kernels' Hillis-Steele loop takes it
-void hillis_steele(std::vector<Agg>& s) {
-  const int n = (int)s.size();
-  for (int d = 1; d < n; d *= 2) {
-    std::vector<Agg> v = s;
-    for (int t = d; t < n; ++t) v[t] = compact::combine(s[t - d], s[t]);
-    s = v;
+// the most keys a thread's run takes here
+constexpr int kRunKeys = 8;
+
+// a thread's run of keys from a noted tile (the key before the tile in slot
+// 0), starting `at` keys into the tile, the key before it first
+compact::RunKeys<kRunKeys> run_keys(const std::vector<int32_t>& s, int32_t lo, int at) {
+  compact::RunKeys<kRunKeys> rk;
+  rk.lo = lo;
+  for (int j = 0; j <= kRunKeys; ++j) {
+    const int slot = compact::noted(at + j);
+    rk.k[j] = slot < (int)s.size() ? s[slot] : 0;
   }
+  return rk;
 }
+
+// a group of G lanes (fibers) running body(group)
+template <int G, class Body>
+void on_group(const Body& body) {
+  warp::run_lanes<G>(body);
+}
+
+// What the scan's tiles have published, as the kernel's blocks see it. A tile
+// a look-back meets before it has published anything runs its first step
+// then, as a block that waits sees it finish.
+struct HostTiles {
+  std::vector<int32_t> status;
+  std::vector<Agg> aggregate, prefix;
+  std::function<void(int32_t)>* first_step;
+  int32_t peek(int32_t t, Agg& v) const {
+    if (status[t] == compact::kInvalid) (*first_step)(t);
+    v = status[t] == compact::kPrefix ? prefix[t] : aggregate[t];
+    return status[t];
+  }
+  void publish(int32_t t, int32_t s, const Agg& a) {
+    (s == compact::kPrefix ? prefix : aggregate)[t] = a;
+    status[t] = s;
+  }
+};
+
+// run_scan's one pass, tile by tile as the kernel's blocks run it: tiles of
+// warps x G threads of `items` keys; a tile's first step (its keys noted, its
+// threads' aggregates scanned on each warp's G lanes (fibers), then
+// across its warps; its aggregate published) and its second (the look-back on
+// G lanes, its prefix published, its survivors staged and written) run in the
+// order `order` gives (event 2 t: tile t's first step, 2 t + 1: its second);
+// then the fill of the slots past the count. A thread's run of keys is read
+// from the noted tile into registers, as the kernel reads it.
+template <int G>
+void single_pass(const int32_t* key, int n, int items, int warps, const int32_t* order,
+                 int32_t* srcpos, int l_next, int32_t* count, int32_t* longest) {
+  const int threads = warps * G, tile_keys = threads * items;
+  const int tiles = (n + tile_keys - 1) / tile_keys;
+  std::vector<std::vector<int32_t>> noted(tiles);
+  std::vector<std::vector<Agg>> below(tiles), warps_before(tiles);
+  std::vector<Agg> total(tiles);
+  std::function<void(int32_t)> first;
+  HostTiles st{std::vector<int32_t>(tiles, compact::kInvalid), std::vector<Agg>(tiles),
+               std::vector<Agg>(tiles), &first};
+  auto bounds = [&](int t, int j, int32_t& lo, int32_t& hi) {
+    const int32_t tile_lo = t * tile_keys, tile_hi = std::min(tile_lo + tile_keys, n);
+    lo = std::min(tile_lo + j * items, tile_hi);
+    hi = std::min(lo + items, tile_hi);
+  };
+  first = [&](int32_t t) {
+    const int32_t lo = t * tile_keys, hi = std::min(lo + tile_keys, n);
+    auto& s = noted[t];
+    s.assign(compact::noted(tile_keys + 1) + 1, 0);
+    s[0] = lo > 0 ? key[lo - 1] : 0;
+    for (int32_t i = 0; i < hi - lo; ++i) s[compact::noted(i + 1)] = key[lo + i];
+    std::vector<Agg> incl(threads);
+    below[t].assign(threads, compact::identity());
+    for (int w = 0; w < warps; ++w) {
+      on_group<G>([&, w](const warp::Group<G>& g) {
+        const int j = w * G + (int)g.lane;
+        int32_t t_lo, t_hi;
+        bounds(t, j, t_lo, t_hi);
+        const auto rk = run_keys(s, t_lo, j * items);
+        const Agg mine = t_lo < t_hi ? compact::tile_aggregate<kRunKeys>(rk, t_lo, t_hi)
+                                     : compact::identity();
+        const Agg in = compact::scan_lanes<G>(g, mine);
+        const Agg b = compact::shfl_agg(g, in, g.lane - 1);
+        incl[j] = in;
+        if (g.lane > 0) below[t][j] = b;
+      });
+    }
+    warps_before[t].assign(warps, compact::identity());
+    Agg all = compact::identity();
+    for (int w = 0; w < warps; ++w) {
+      warps_before[t][w] = all;
+      all = compact::combine(all, incl[w * G + G - 1]);
+    }
+    total[t] = all;
+    st.publish(t, t == 0 ? compact::kPrefix : compact::kAggregate, all);
+  };
+  auto ensure_first = [&](int32_t t) {
+    if (st.status[t] == compact::kInvalid) first(t);
+  };
+  auto second = [&](int32_t t) {
+    ensure_first(t);
+    Agg before = compact::identity();
+    if (t > 0) {
+      on_group<G>([&](const warp::Group<G>& g) {
+        const Agg p = compact::look_back<G>(g, st, t);
+        if (g.lane == 0) before = p;
+      });
+      st.publish(t, compact::kPrefix, compact::combine(before, total[t]));
+    }
+    const int32_t lo = t * tile_keys, hi = std::min(lo + tile_keys, n);
+    const int32_t end = compact::combine(before, total[t]).lefts[0];
+    if (hi == n) *count = end;
+    std::vector<int32_t> stage(compact::noted(tile_keys), -9);
+    const int32_t first_slot = before.lefts[0];
+    for (int j = 0; j < threads; ++j) {
+      int32_t t_lo, t_hi;
+      bounds(t, j, t_lo, t_hi);
+      if (t_lo >= t_hi) continue;
+      const Agg mine_before = compact::combine(compact::combine(before, warps_before[t][j / G]),
+                                               below[t][j]);
+      const auto rk = run_keys(noted[t], t_lo, j * items);
+      *longest = std::max(*longest, compact::apply_tile<kRunKeys>(
+                                        rk, t_lo, t_hi, mine_before,
+                                        compact::Staged{stage.data(), first_slot}, l_next));
+    }
+    for (int32_t s = first_slot; s < std::min(end, (int32_t)l_next); ++s) {
+      srcpos[s] = stage[compact::noted(s - first_slot)];
+    }
+  };
+  *longest = 0;
+  for (int e = 0; e < 2 * tiles; ++e) {
+    if (order[e] % 2 == 0) {
+      ensure_first(order[e] / 2);
+    } else {
+      second(order[e] / 2);
+    }
+  }
+  for (long j = *count; j < l_next; ++j) srcpos[j] = n - 1;
+}
+
 
 // the kernels' lanes: two words of an element each, 8 a group
 constexpr int L = 2;
 
-// one chain of the horner kernel on a group of host threads
+// one chain of the horner kernel on a group of lanes (fibers)
 void coop_chain(const uint32_t* const* pw, const int32_t* ch, uint32_t* const* out, int b) {
   using coop381::Lanes;
-  coop381::Exchange ex;
-  ex.size = Lanes<L>::G;
-  std::vector<std::thread> lanes;
-  for (uint32_t lane = 0; lane < (uint32_t)Lanes<L>::G; ++lane) {
-    lanes.emplace_back([=, &ex] {
-      const auto s = coop381::make_lanes<L>(coop381::Group<Lanes<L>::G>{lane, &ex});
-      const long in = (long)ch[0] * 12;
-      coop381::horner_group(s, pw[0] + in, pw[1] + in, pw[2] + in, ch[1], ch[2],
-                               out[0] + 12 * b, out[1] + 12 * b, out[2] + 12 * b);
-    });
-  }
-  for (auto& t : lanes) t.join();
+  warp::run_lanes<Lanes<L>::G>([=](const coop381::Group<Lanes<L>::G>& g) {
+    const auto s = coop381::make_lanes<L>(g);
+    const long in = (long)ch[0] * 12;
+    coop381::horner_group(s, pw[0] + in, pw[1] + in, pw[2] + in, ch[1], ch[2], out[0] + 12 * b,
+                          out[1] + 12 * b, out[2] + 12 * b);
+  });
 }
 
 void mul_group(const uint32_t* a, const uint32_t* b, uint32_t* out, int n) {
   using coop381::Lanes;
-  coop381::Exchange ex;
-  ex.size = Lanes<L>::G;
-  std::vector<std::thread> lanes;
-  for (uint32_t lane = 0; lane < (uint32_t)Lanes<L>::G; ++lane) {
-    lanes.emplace_back([=, &ex] {
-      const auto s = coop381::make_lanes<L>(coop381::Group<Lanes<L>::G>{lane, &ex});
-      for (int i = 0; i < n; ++i) {
-        coop381::Fe<L> x, y;
-        coop381::load(s, x, a + 12 * i);
-        coop381::load(s, y, b + 12 * i);
-        coop381::mul(s, x, x, y);
-        if (s.active) {
-          for (int k = 0; k < L; ++k) out[12 * i + L * lane + k] = x[k];
-        }
+  warp::run_lanes<Lanes<L>::G>([=](const coop381::Group<Lanes<L>::G>& g) {
+    const auto s = coop381::make_lanes<L>(g);
+    for (int i = 0; i < n; ++i) {
+      coop381::Fe<L> x, y;
+      coop381::load(s, x, a + 12 * i);
+      coop381::load(s, y, b + 12 * i);
+      coop381::mul(s, x, x, y);
+      if (s.active) {
+        for (int k = 0; k < L; ++k) out[12 * i + L * g.lane + k] = x[k];
       }
-    });
-  }
-  for (auto& t : lanes) t.join();
+    }
+  });
 }
 
 }  // namespace
 
 extern "C" {
 
-// run_scan's three passes, a block of `tiles` tiles of `items` keys, the
-// blocks' aggregates scanned `chunk` at a time
-void scan(const int32_t* key, int n, int items, int tiles, int chunk, int32_t* srcpos,
-          int l_next, int32_t* count, int32_t* longest) {
-  const long block_keys = (long)items * tiles;
-  const int blocks = (int)((n + block_keys - 1) / block_keys);
-  auto tile = [&](int b, int t) {
-    const long lo = b * block_keys + (long)t * items;
-    if (lo >= n) return compact::identity();
-    return compact::tile_aggregate(key, (int32_t)lo, (int32_t)std::min<long>(lo + items, n));
-  };
-  std::vector<Agg> agg(blocks), s(tiles);
-  for (int b = 0; b < blocks; ++b) {  // pass 1: a tree over the block's tiles
-    for (int t = 0; t < tiles; ++t) s[t] = tile(b, t);
-    for (int stride = 1; stride < tiles; stride *= 2) {
-      for (int t = 0; t + stride < tiles; t += 2 * stride) s[t] = compact::combine(s[t], s[t + stride]);
-    }
-    agg[b] = s[0];
-  }
-  Agg carry = compact::identity();  // pass 2: exclusive prefixes, in place
-  for (int base = 0; base < blocks; base += chunk) {
-    std::vector<Agg> c(chunk);
-    for (int t = 0; t < chunk; ++t) c[t] = base + t < blocks ? agg[base + t] : compact::identity();
-    hillis_steele(c);
-    for (int t = 0; t < chunk && base + t < blocks; ++t) {
-      agg[base + t] = compact::combine(carry, t > 0 ? c[t - 1] : compact::identity());
-    }
-    carry = compact::combine(carry, c[chunk - 1]);
-  }
-  *count = carry.lefts[0];
-  *longest = 0;
-  for (int b = 0; b < blocks; ++b) {  // pass 3
-    for (int t = 0; t < tiles; ++t) s[t] = tile(b, t);
-    hillis_steele(s);
-    for (int t = 0; t < tiles; ++t) {
-      const long lo = b * block_keys + (long)t * items;
-      if (lo >= n) continue;
-      const Agg before = compact::combine(agg[b], t > 0 ? s[t - 1] : compact::identity());
-      const int32_t run = compact::apply_tile(key, (int32_t)lo,
-                                              (int32_t)std::min<long>(lo + items, n), before,
-                                              srcpos, l_next);
-      *longest = std::max(*longest, run);
-    }
-  }
-  for (long j = *count; j < l_next; ++j) srcpos[j] = n - 1;
+// run_scan's one pass with tiles of warps x lanes threads of `items` (at most
+// kRunKeys) keys, lanes 1, 2, 4 or 8
+void scan(const int32_t* key, int n, int items, int warps, int lanes, const int32_t* order,
+          int32_t* srcpos, int l_next, int32_t* count, int32_t* longest) {
+  auto run = lanes == 1   ? single_pass<1>
+             : lanes == 2 ? single_pass<2>
+             : lanes == 4 ? single_pass<4>
+                          : single_pass<8>;
+  run(key, n, items, warps, order, srcpos, l_next, count, longest);
 }
 
 // compact_add's kernel, block by block and thread by thread: tiles of
@@ -238,7 +322,7 @@ void slots(const int32_t* key, const uint32_t* const* pt, int n, const int32_t* 
   }
 }
 
-// a chain on a group of host threads a segment
+// a chain on a group of lanes (fibers) a segment
 void horner(const uint32_t* const* pw, int segments, int windows, int c, uint32_t* const* out) {
   for (int s = 0; s < segments; ++s) {
     const int32_t ch[3] = {s * windows, windows, c};
@@ -247,7 +331,7 @@ void horner(const uint32_t* const* pw, int segments, int windows, int c, uint32_
 }
 
 // the horner kernel's blocks over a chain table (a chain: first row, windows,
-// c), a group of host threads a chain
+// c), a group of lanes (fibers) a chain
 void horner_chains(const uint32_t* const* pw, const int32_t* chains, int n_chains,
                    uint32_t* const* out) {
   for (int b = 0; b < n_chains; ++b) coop_chain(pw, chains + 3 * b, out, b);
@@ -280,11 +364,11 @@ def lib(tmp_path_factory):
     src = tmp / "harness.cpp"
     src.write_text(HARNESS)
     out = tmp / "libmsm_host.so"
-    subprocess.run(["g++", "-std=c++17", "-O1", "-shared", "-fPIC", "-pthread", "-I", CSRC,
+    subprocess.run(["g++", "-std=c++17", "-O1", "-shared", "-fPIC", "-I", CSRC,
                     str(src), "-o", str(out)], check=True, capture_output=True)
     lib = ctypes.CDLL(str(out))
     _P, _I = ctypes.c_void_p, ctypes.c_int
-    lib.scan.argtypes = [_P, _I, _I, _I, _I, _P, _I, _P, _P]
+    lib.scan.argtypes = [_P, _I, _I, _I, _I, _P, _P, _I, _P, _P]
     lib.slots.argtypes = [_P, _P, _I, _P, _I, _I, _I, _I, _I, _P, _P]
     lib.horner.argtypes = [_P, _I, _I, _I, _P]
     lib.horner_chains.argtypes = [_P, _P, _I, _P]
@@ -363,18 +447,37 @@ def test_run_scan_plain_matches_zktpu_steps(name):
         assert (int(count), int(longest)) == (want_count, want_longest)
 
 
-@pytest.mark.parametrize("items, tiles, chunk", [(4, 1, 1), (5, 2, 3), (8, 4, 2), (6, 3, 8)])
-def test_compact_cuh_scan_matches_plain(lib, items, tiles, chunk):
+#: run_scan's one pass on the host: (keys a thread, warps a tile, lanes a warp)
+SCAN_TILES = ((4, 1, 1), (5, 2, 2), (3, 1, 4), (2, 2, 4), (1, 3, 8), (8, 1, 2))
+
+
+@pytest.mark.parametrize("items, warps, lanes", SCAN_TILES)
+def test_compact_cuh_scan_matches_plain(lib, items, warps, lanes):
+    """compact.cuh's one pass (tiles of 1 to 24 keys, so that runs cross one,
+    two and many tiles) against ``run_scan_plain``, its tiles' two steps in a
+    shuffled order: a look-back meets predecessors that have published only
+    their aggregate, their prefix, or nothing yet (it then waits for them),
+    and the nearest prefix may lie several look-back windows back. l_next
+    below, at and above the count, and every key: the slots past the count
+    are filled."""
+    rng = np.random.default_rng(100 * items + 10 * warps + lanes)
+    tile_keys = items * warps * lanes
+    waits = 0
     for key in KEY_SETS.values():
         n = key.shape[0]
+        tiles = -(-n // tile_keys)
         for l_next in _l_nexts(key):
+            order = _i32(rng.permutation(2 * tiles))
+            ranks = np.argsort(order.numpy())
+            waits += int(np.sum(ranks[1::2][1:] < ranks[0::2][:-1]))
             srcpos = torch.full((l_next,), -7, dtype=torch.int32)
             count = torch.zeros(1, dtype=torch.int32)
             longest = torch.zeros(1, dtype=torch.int32)
-            lib.scan(_ptr(key), n, items, tiles, chunk, _ptr(srcpos), l_next, _ptr(count),
-                     _ptr(longest))
+            lib.scan(_ptr(key), n, items, warps, lanes, _ptr(order), _ptr(srcpos), l_next,
+                     _ptr(count), _ptr(longest))
             want = mk.run_scan_plain(key, l_next)
             assert all(torch.equal(g, w) for g, w in zip((srcpos, count, longest), want))
+    assert waits > 0  # some tile looked back before its predecessor had published
 
 
 # ----------------------------------------------------------------------
@@ -530,7 +633,7 @@ def test_horner_plain_matches_zktpu():
 
 
 def test_horner_lane_matches_plain(lib):
-    """coop381.cuh's chain (a chain's lanes host threads) on three segments of
+    """coop381.cuh's chain (a chain's lanes fibers) on three segments of
     four windows: random points, an infinite top window, and every window
     infinite; c = 4 and c = 1; one window alone."""
     rng = np.random.default_rng(9)
@@ -596,7 +699,7 @@ def test_horner_groups_plain_matches_zktpu():
 
 def test_horner_kernel_chain_table_matches_plain(lib):
     """The kernel's blocks over ``chain_table``'s rows, a chain on a group of 8
-    lanes (coop381.cuh's horner_group, the lanes host threads), against
+    lanes (coop381.cuh's horner_group, the lanes fibers), against
     horner_groups_plain; the groups of ``_ragged_groups`` plus an infinite top
     window and an infinite segment."""
     p = [_host(k) for k in (29, 31)]
@@ -622,7 +725,7 @@ def _word_ints(t):
 
 
 def test_coop_mul_matches_host_field(lib):
-    """coop381.cuh's product (lanes as host threads) on 0, 1, p - 1, R mod p,
+    """coop381.cuh's product (lanes as fibers) on 0, 1, p - 1, R mod p,
     lazy values in [p, 2p) and random ones: a b / R mod p by field/host.py, and
     the lazy words of fq381.cuh's one-thread product."""
     spec = fq.spec

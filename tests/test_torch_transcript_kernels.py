@@ -17,10 +17,13 @@ tolerance 0 (integer arithmetic and bits), on inputs made from numpy seeds:
     ``_trim_len``; the test takes the branch ``_trim_len`` picks (a switch
     called outside ``jit`` compiles its four branches at every call);
   * the digest's Montgomery form on digests at and above p;
-  * the kernels' own code -- ``csrc/keccak.cuh`` and ``round_step``'s body in
+  * the kernels' own code -- ``csrc/keccak.cuh``'s two permutations (one
+    thread's, and the 25-lane one on a warp) and ``round_step``'s body in
     ``csrc/transcript.cuh``, on ``csrc/mont.cuh`` -- built for the host with
     g++ (the carry-chain primitives of ``csrc/carry.cuh`` have a host
-    emulation), against the plain versions on the same cases and more.
+    emulation, and a warp is 32 fibers of one host thread that meet at a
+    barrier for each shuffle, ``csrc/warp.cuh``), against the plain versions on
+    the same cases and more.
 
 The kernels themselves run only on the card: ``chip_smoke.py`` phase 17 holds
 them there against the same plain versions.
@@ -68,11 +71,44 @@ ZKTPU_CASES = (
 HARNESS = r"""
 #include "transcript.cuh"
 
+namespace {
+
+// the kernels' warp: 32 fibers that hand over to one another at each shuffle
+template <class Body>
+void on_warp(const Body& body) {
+  warp::run_lanes<32>(body);
+}
+
+template <int K, bool First>
+void round_kind(const uint32_t* rows, const uint64_t* state_in, const uint64_t* prefix,
+                int prefix_lanes, const transcript::Consts& c, uint32_t* out_rows,
+                uint64_t* state_out, uint32_t* challenge) {
+  on_warp([&](const warp::Group<32>& g) {
+    transcript::round_step<K, First>(g, rows, state_in, prefix, prefix_lanes, c, out_rows,
+                                     state_out, challenge);
+  });
+}
+
+}  // namespace
+
 extern "C" {
 void tk_permute(uint64_t* states, long n) {
   for (long i = 0; i < n; ++i) keccak::permute(*(uint64_t(*)[keccak::kLanes])(states + 25 * i));
 }
 
+// keccak.cuh's permutation on 25 lanes of a warp, a state at a time
+void tk_permute_lanes(uint64_t* states, long n) {
+  on_warp([&](const warp::Group<32>& g) {
+    const keccak::LaneRoles roles = keccak::lane_roles(g.lane);
+    for (long i = 0; i < n; ++i) {
+      uint64_t a = g.lane < 25 ? states[25 * i + g.lane] : 0;
+      keccak::permute_lanes(g, roles, a);
+      if (g.lane < 25) states[25 * i + g.lane] = a;
+    }
+  });
+}
+
+// round_step's body on a warp of fibers
 void tk_round_step(const uint32_t* rows, int k, const uint64_t* state_in, int fresh,
                    const uint64_t* prefix, int prefix_lanes, const uint32_t* p, uint32_t n0,
                    const uint32_t* r2, const uint32_t* inv2, uint32_t* out_rows,
@@ -84,8 +120,9 @@ void tk_round_step(const uint32_t* rows, int k, const uint64_t* state_in, int fr
     c.inv2[j] = inv2[j];
   }
   c.M.n0 = n0;
-  transcript::round_step(rows, k, state_in, fresh, prefix, prefix_lanes, c, out_rows, state_out,
-                         challenge);
+  auto run = k == 2 ? (fresh ? round_kind<2, false> : round_kind<2, true>)
+                    : (fresh ? round_kind<3, false> : round_kind<3, true>);
+  run(rows, state_in, prefix, prefix_lanes, c, out_rows, state_out, challenge);
 }
 }
 """
@@ -97,11 +134,12 @@ def lib(tmp_path_factory):
     src = tmp / "harness.cpp"
     src.write_text(HARNESS)
     out = tmp / "libtranscript_host.so"
-    subprocess.run(["g++", "-std=c++17", "-O1", "-shared", "-fPIC", "-I", CSRC, str(src),
-                    "-o", str(out)], check=True, capture_output=True)
+    subprocess.run(["g++", "-std=c++17", "-O1", "-shared", "-fPIC", "-I", CSRC,
+                    str(src), "-o", str(out)], check=True, capture_output=True)
     lib = ctypes.CDLL(str(out))
     _P, _I = ctypes.c_void_p, ctypes.c_int
     lib.tk_permute.argtypes = [_P, ctypes.c_long]
+    lib.tk_permute_lanes.argtypes = [_P, ctypes.c_long]
     lib.tk_round_step.argtypes = [_P, _I, _P, _I, _P, _I, _P, ctypes.c_uint32, _P, _P, _P, _P, _P]
     return lib
 
@@ -267,15 +305,16 @@ def test_digest_to_mont_at_and_above_p(field):
 
 @pytest.mark.parametrize("field", list(FIELDS))
 def test_round_step_body_equals_plain(lib, field):
-    """transcript.cuh's round_step, built for the host, against the plain
-    version: zktpu's cases, then every tail length 0..16 for both row counts
-    and every trimmed length."""
+    """transcript.cuh's round_step, built for the host and run on a warp of
+    32 fibers, against the plain version: zktpu's cases, then every tail
+    length 0..16 (first rounds of one and two blocks) for both row counts and
+    every trimmed length, digests at and above p."""
     spec = FIELDS[field][0]
     ctx = fb.get_ctx(spec, device="cpu")
     rng = np.random.default_rng(54)
     cases = list(ZKTPU_CASES) + [(k, tail, m) for k in (2, 3) for tail in range(17)
                                  for m in ((2,) if k == 2 else range(4))]
-    blocks = set()
+    blocks, above_p = set(), 0
     for k, tail, m in cases:
         rows, state, tail_lanes = _round_inputs(spec, rng, k, tail, m)
         canon, st, challenge = _plain(ctx, rows, state, tail_lanes)
@@ -286,7 +325,21 @@ def test_round_step_body_equals_plain(lib, field):
         assert np.array_equal(h_challenge, fb.tensor_to_words(challenge)), what
         if tail is not None:
             blocks.add((tail + 4 * m) // tk.RATE_LANES + 1)
-    assert blocks == {1, 2}
+        digest = h_state[:4].view(np.uint64)
+        above_p += sum(int(d) << (64 * i) for i, d in enumerate(digest)) >= spec.modulus
+    assert blocks == {1, 2} and 0 < above_p < len(cases)
+
+
+def test_keccak_lanes_equal_plain(lib):
+    """keccak.cuh's permutation on 25 lanes of a warp (32 fibers, a barrier
+    for each shuffle) against the plain version."""
+    rng = np.random.default_rng(55)
+    states = np.concatenate([np.zeros((1, 25), np.int64), np.full((1, 25), -1, np.int64),
+                             _random_lanes(rng, 4 * 25).reshape(4, 25)])
+    want = tk.keccak_f_plain(torch.from_numpy(states)).numpy()
+    got = states.copy()
+    lib.tk_permute_lanes(_ptr(got), got.shape[0])
+    assert np.array_equal(got, want)
 
 
 def test_absorb_pad_when_the_content_ends_a_block_early():

@@ -23,6 +23,16 @@
 // Padding keys (_MAXKEY) get no special case: they form a run like any other,
 // as in both packages.
 //
+// The kernel scans in one pass (Merrill and Garland's decoupled look-back): a
+// block takes its tile of keys by ticket, scans its threads' aggregates on its
+// warps' lanes (`scan_lanes`), publishes the tile's aggregate, finds the
+// tile's prefix from its predecessors' published aggregates and prefixes
+// (`look_back`, a warp looking at as many predecessors at once), publishes its
+// own prefix and writes its survivors. The tile's keys pass through shared
+// memory into each thread's registers (`RunKeys`) and its survivor slots
+// through shared memory (`Staged`), so the keys leave device memory once and
+// the slots are written in order.
+//
 // Built with nvcc the scan's and the tile's functions are host and device
 // code and add_entry device code; built with a host C++ compiler (as
 // tests/test_torch_msm_kernels.py does) the same code runs on the host.
@@ -32,6 +42,7 @@
 #include <cstdint>
 
 #include "fq381.cuh"
+#include "warp.cuh"
 
 #ifdef __CUDACC__
 #define CM_HD __host__ __device__ __forceinline__
@@ -62,41 +73,67 @@ CM_HD Agg combine(const Agg& a, const Agg& b) {
   return o;
 }
 
-// the aggregate of keys [lo, hi), lo < hi
-CM_HD Agg tile_aggregate(const int32_t* key, int32_t lo, int32_t hi) {
+// Where slot s of a tile is noted in shared memory: a word of padding every
+// 32, so that a warp meets few banks twice both when its threads take
+// neighbouring slots and when each takes a run of them
+CM_HD int noted(int s) { return s + (s >> 5); }
+
+// A thread's run of at most N keys [lo, ...) in registers, the key before it
+// first: key i at k[i - lo + 1]
+template <int N>
+struct RunKeys {
+  int32_t k[N + 1];
+  int32_t lo;
+  CM_HD int32_t operator[](int32_t i) const { return k[i - lo + 1]; }
+};
+
+// A tile's survivor slots [first, ...) staged in shared memory, noted
+struct Staged {
+  int32_t* stage;
+  int32_t first;
+  CM_HD int32_t& operator[](int32_t slot) const { return stage[noted(slot - first)]; }
+};
+
+// the aggregate of keys [lo, hi), 0 < hi - lo <= N (key: anything indexed by
+// position; every step a constant distance from lo, so a RunKeys stays in
+// registers)
+template <int N, class Keys>
+CM_HD Agg tile_aggregate(const Keys& key, int32_t lo, int32_t hi) {
   Agg a = identity();
   int32_t prev = lo > 0 ? key[lo - 1] : 0;
-  for (int32_t i = lo; i < hi; ++i) {
+#pragma unroll
+  for (int32_t j = 0; j < N; ++j) {
+    const int32_t i = lo + j;
+    if (i >= hi) break;
     const int32_t k = key[i];
-    if (i == 0 || k != prev) {
-      a.has_head = 1;
-      a.last_head = i;
-    }
-    if (a.has_head) {
-      const int32_t left = ((i - a.last_head) & 1) == 0;
-      a.lefts[0] += left;
-      a.lefts[1] += left;
-    } else {
-      a.lefts[i & 1] += 1;
-    }
+    const bool head = i == 0 || k != prev;
+    a.last_head = head ? i : a.last_head;
+    a.has_head |= head;
+    const int32_t left = ((i - a.last_head) & 1) == 0;
+    a.lefts[0] += a.has_head ? left : (i & 1) == 0;
+    a.lefts[1] += a.has_head ? left : (i & 1) == 1;
     prev = k;
   }
   return a;
 }
 
-// Keys [lo, hi) with `before`, the aggregate of keys [0, lo): each left's
-// survivor slot is the count of lefts before it, and the left at i goes to
-// srcpos[slot] when the slot is below l_next. Returns the tile's longest run
-// so far (the largest rank + 1).
-CM_HD int32_t apply_tile(const int32_t* key, int32_t lo, int32_t hi, const Agg& before,
-                         int32_t* srcpos, int32_t l_next) {
+// Keys [lo, hi), 0 < hi - lo <= N, with `before`, the aggregate of keys [0,
+// lo): each left's survivor slot is the count of lefts before it, and the left
+// at i goes to srcpos[slot] when the slot is below l_next. Returns the tile's
+// longest run so far (the largest rank + 1).
+template <int N, class Keys, class Slots>
+CM_HD int32_t apply_tile(const Keys& key, int32_t lo, int32_t hi, const Agg& before,
+                         const Slots& srcpos, int32_t l_next) {
   int32_t run_start = before.last_head;
   int32_t slot = before.lefts[0];
   int32_t longest = 0;
   int32_t prev = lo > 0 ? key[lo - 1] : 0;
-  for (int32_t i = lo; i < hi; ++i) {
+#pragma unroll
+  for (int32_t j = 0; j < N; ++j) {
+    const int32_t i = lo + j;
+    if (i >= hi) break;
     const int32_t k = key[i];
-    if (i == 0 || k != prev) run_start = i;
+    run_start = i == 0 || k != prev ? i : run_start;
     const int32_t rank = i - run_start;
     longest = rank + 1 > longest ? rank + 1 : longest;
     if ((rank & 1) == 0) {
@@ -106,6 +143,58 @@ CM_HD int32_t apply_tile(const int32_t* key, int32_t lo, int32_t hi, const Agg& 
     prev = k;
   }
   return longest;
+}
+
+// ----------------------------------------------------------------------
+// the one-pass scan across a group's lanes and across tiles
+// ----------------------------------------------------------------------
+
+template <class Gr>
+WP_FN Agg shfl_agg(const Gr& g, const Agg& a, uint32_t src) {
+  return Agg{(int32_t)g.shfl((uint32_t)a.has_head, src), (int32_t)g.shfl((uint32_t)a.last_head, src),
+             {(int32_t)g.shfl((uint32_t)a.lefts[0], src), (int32_t)g.shfl((uint32_t)a.lefts[1], src)}};
+}
+
+// the inclusive scan of the group's aggregates in lane order
+template <int G, class Gr>
+WP_FN Agg scan_lanes(const Gr& g, Agg v) {
+#pragma unroll
+  for (int d = 1; d < G; d *= 2) {
+    const Agg u = shfl_agg(g, v, g.lane - d);
+    if ((int)g.lane >= d) v = combine(u, v);
+  }
+  return v;
+}
+
+// a tile's status: nothing published yet, its aggregate, its inclusive prefix
+enum : int32_t { kInvalid = 0, kAggregate = 1, kPrefix = 2 };
+
+// The exclusive prefix of tile `tile` > 0 from what its predecessors
+// published, G at a time: lane l looks at tile end - G + l until it has
+// published something. The nearest predecessor with a prefix ends the
+// look-back; its prefix and the aggregates of the tiles after it, combined in
+// order (lane 0 gathers them in log G steps), precede what was found before.
+// `st` is the tiles' published state: peek(t, v) returns tile t's status and
+// in v what it published with it.
+template <int G, class States, class Gr>
+WP_FN Agg look_back(const Gr& g, const States& st, int32_t tile) {
+  Agg prefix = identity();
+  for (int32_t end = tile;; end -= G) {
+    const int32_t t = end - G + (int32_t)g.lane;
+    Agg v = identity();
+    int32_t status = kPrefix;
+    if (t >= 0) {
+      do {
+        status = st.peek(t, v);
+      } while (status == kInvalid);
+    }
+    const uint32_t done = g.ballot(status == kPrefix);
+    if (done != 0 && (int32_t)g.lane < warp::top_bit(done)) v = identity();
+#pragma unroll
+    for (int d = 1; d < G; d *= 2) v = combine(v, shfl_agg(g, v, g.lane + d));
+    prefix = combine(shfl_agg(g, v, 0), prefix);
+    if (done != 0) return prefix;
+  }
 }
 
 // ----------------------------------------------------------------------
@@ -135,11 +224,6 @@ enum : uint8_t { kNone = 0, kPad = 1, kCopy = 2, kAdd = 3 };
 // counts of a run packed in a word: additions low, copies high (a tile holds
 // fewer than 2^16 slots)
 constexpr uint32_t kCopyUnit = 1u << 16;
-
-// Where slot s of a tile is noted in shared memory: a word of padding every
-// 32, so that a warp meets few banks twice both when its threads take
-// neighbouring slots and when each takes a run of them
-CM_HD int noted(int s) { return s + (s >> 5); }
 
 #ifdef __CUDACC__
 using Quad = ::uint4;

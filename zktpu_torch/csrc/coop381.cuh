@@ -31,19 +31,16 @@
 //
 // Built with nvcc, a group is the first G lanes of a warp (a block of G
 // threads). Built with a host C++ compiler (as tests/test_torch_msm_kernels.py
-// does), a group is G host threads that meet at a barrier for each shuffle
-// and vote, so the same code runs against the plain versions without a card.
+// does), a group is G fibers of one host thread that meet at a barrier for
+// each shuffle and vote (warp.cuh), so the same code runs against the plain
+// versions without a card.
 
 #pragma once
 
 #include <cstdint>
 
 #include "fq381.cuh"
-
-#ifndef __CUDACC__
-#include <atomic>
-#include <thread>
-#endif
+#include "warp.cuh"
 
 namespace coop381 {
 
@@ -55,60 +52,9 @@ FQ_HD constexpr uint32_t NP(int j) {
   return j == 0 ? 0xfffcfffdu : j == 1 ? 0x89f3fffcu : 0xd9d113e8u;
 }
 
-#ifdef __CUDACC__
-
-template <int G>
-struct Group {
-  static constexpr uint32_t kMask = G == 32 ? 0xffffffffu : (1u << G) - 1u;
-  uint32_t lane;
-  __device__ __forceinline__ uint32_t shfl(uint32_t v, uint32_t src) const {
-    return __shfl_sync(kMask, v, (int)src, G);
-  }
-  __device__ __forceinline__ uint32_t ballot(bool pred) const {
-    return __ballot_sync(kMask, pred) & kMask;
-  }
-};
-
-#else  // host: G threads and a barrier
-
-struct Exchange {
-  int size = 0;
-  std::atomic<int> arrived{0};
-  std::atomic<unsigned> phase{0};
-  uint32_t slot[32] = {};
-  void sync() {
-    const unsigned ph = phase.load(std::memory_order_acquire);
-    if (arrived.fetch_add(1, std::memory_order_acq_rel) + 1 == size) {
-      arrived.store(0, std::memory_order_relaxed);
-      phase.store(ph + 1, std::memory_order_release);
-    } else {
-      while (phase.load(std::memory_order_acquire) == ph) std::this_thread::yield();
-    }
-  }
-};
-
-template <int G>
-struct Group {
-  static constexpr uint32_t kMask = G == 32 ? 0xffffffffu : (1u << G) - 1u;
-  uint32_t lane;
-  Exchange* ex;
-  uint32_t shfl(uint32_t v, uint32_t src) const {
-    ex->slot[lane] = v;
-    ex->sync();
-    const uint32_t r = ex->slot[src & (G - 1)];
-    ex->sync();
-    return r;
-  }
-  uint32_t ballot(bool pred) const {
-    ex->slot[lane] = pred ? 1u : 0u;
-    ex->sync();
-    uint32_t mask = 0;
-    for (int l = 0; l < G; ++l) mask |= ex->slot[l] << l;
-    ex->sync();
-    return mask;
-  }
-};
-
+using warp::Group;
+#ifndef __CUDACC__
+using warp::Exchange;
 #endif
 
 // L words a lane: D lanes hold digits, the group is G lanes (a power of two)

@@ -11,11 +11,20 @@
 //     key's rank in its run of equal keys, the survivors' positions (survivor j
 //     is the (j + 1)-th rank-even key: srcpos[j], for j < l_next; slots past
 //     the survivors get n - 1, as the clamped search gives), the survivor count
-//     and the longest run, the last two as device scalars (no read-back). Three
-//     passes (compact.cuh has the logic): each block reduces its tiles to one
-//     aggregate; one block scans the aggregates; each block scans its tiles
-//     again from its prefix and writes the survivors' positions. Bound: bytes
-//     (the keys, read twice, and the positions written), no multiply-adds.
+//     and the longest run, the last two as device scalars (no read-back). One
+//     pass over the keys with a decoupled look-back (compact.cuh has the
+//     logic): a block of 128 threads takes a tile of 4,096 keys by ticket,
+//     loads them 16 bytes a thread into shared memory, each thread takes its
+//     run of 32 into registers; the block scans its threads' aggregates with
+//     warp shuffles, publishes the tile's aggregate and, after a look-back over
+//     its predecessors on one warp, its prefix; then writes its survivors'
+//     positions through shared memory, in order. The tile of the last key
+//     writes the count. A second, small kernel fills the slots past the count,
+//     moves the longest run out and leaves the scan's state (tickets, records,
+//     the running longest run) zero for the next launch: that state lives in a
+//     scratch buffer the caller keeps, zero between launches. Bound: bytes (the
+//     keys read once, the positions written), no multiply-adds; the kernel is
+//     held back by each thread's dependent chain over its keys.
 //   * compact_add -- replaces the rest of _compact_round (:178-184: the gathers,
 //     point_add_px and the selects). A block takes a tile of 256 slots and
 //     sorts them by what they do (compact.cuh): survivor j's key and its left
@@ -42,8 +51,6 @@
 //     group a product, so that the card's cooperative arithmetic can be held
 //     against the field oracle.
 //
-// Making the scan fast is later work: a single pass with a look-back.
-//
 // Points are (n, 12) uint32 tables X, Y, Z of canonical Montgomery words over
 // BLS12-381 Fq, infinity Z == 0; the modulus is compiled in (fq381.cuh) and the
 // launchers check the caller's.
@@ -65,12 +72,20 @@ namespace {
 using compact::Agg;
 
 constexpr int W = fq381::W;
-// run_scan: keys a thread, threads a block, keys a block
-constexpr int kScanItems = 16;
-constexpr int kScanThreads = 256;
+// run_scan: keys a thread, threads a block, keys a tile (a block's), its keys
+// noted in shared memory after the key before it, its survivors' positions
+// staged, noted (4 warps of 32 keys a thread were faster than 256 x 16, 256 x
+// 32, 128 x 16, 64 x 32 or 64 x 64: PERF.md)
+constexpr int kScanItems = 32;
+constexpr int kScanThreads = 128;
+constexpr int kScanWarps = kScanThreads / 32;
 constexpr int kScanTile = kScanItems * kScanThreads;
-// run_scan's second pass: one block
-constexpr int kBlocksThreads = 1024;
+constexpr int kScanNoted = kScanTile + 1 + (kScanTile + 1) / 32 + 1;
+constexpr int kScanStaged = kScanTile + kScanTile / 32;
+// run_scan's fill: threads a block, slots a thread at the least
+constexpr int kFillThreads = 256;
+constexpr int kFillItems = 4;
+constexpr int kFillMaxBlocks = 1024;
 // compact_add: threads a block, as point_add (168 registers a thread at most:
 // no spill), and slots a thread: a tile of 256 slots. Smaller tiles spread the
 // additions, which crowd where the keys' runs are long, over more blocks
@@ -88,9 +103,6 @@ constexpr int kDigitWords = 2;
 using ChainGroup = coop381::Group<coop381::Lanes<kDigitWords>::G>;
 constexpr int kChainLanes = coop381::Lanes<kDigitWords>::G;
 
-__device__ __forceinline__ Agg scan_op(const Agg& a, const Agg& b) {
-  return compact::combine(a, b);
-}
 __device__ __forceinline__ uint32_t scan_op(uint32_t a, uint32_t b) { return a + b; }
 
 // Hillis-Steele inclusive scan of s[0, T) in shared memory, in order
@@ -106,84 +118,153 @@ __device__ void block_scan(V* s) {
   }
 }
 
-// the aggregate of this thread's tile (identity past the keys)
-__device__ Agg thread_tile(const int32_t* key, int32_t n, long long lo) {
-  if (lo >= n) return compact::identity();
-  const long long hi = lo + kScanItems < n ? lo + kScanItems : n;
-  return compact::tile_aggregate(key, (int32_t)lo, (int32_t)hi);
+// The scan's state across its tiles, in the caller's scratch (zero between
+// launches): the ticket counter, the running longest run, then a 16-byte
+// record a tile, at the same place whatever the key count. A record is one
+// Agg with the tile's status in its first word beside has_head, written and
+// read as one volatile 16-byte access (the 16-byte tile descriptor of CUB's
+// look-back), so a reader that sees a status sees the value published with it,
+// and no fence stands between them: a status word behind a fence, read then
+// fenced then the value, was a quarter slower (PERF.md). The accesses are
+// volatile: a weak load (ld.cg) may be hoisted out of the spin in part by the
+// assembler, and the reader then saw the new status beside the old value.
+struct ScanState {
+  int32_t* ticket;
+  int32_t* longest;
+  int4* tile;
+
+  __device__ void publish(int32_t t, int32_t s, const Agg& a) const {
+    asm volatile("st.volatile.global.v4.s32 [%0], {%1, %2, %3, %4};" ::"l"(tile + t),
+                 "r"(a.has_head | s << 1), "r"(a.last_head), "r"(a.lefts[0]), "r"(a.lefts[1])
+                 : "memory");
+  }
+  __device__ int32_t peek(int32_t t, Agg& v) const {
+    int32_t w0, w1, w2, w3;
+    asm volatile("ld.volatile.global.v4.s32 {%0, %1, %2, %3}, [%4];"
+                 : "=r"(w0), "=r"(w1), "=r"(w2), "=r"(w3)
+                 : "l"(tile + t)
+                 : "memory");
+    v = Agg{w0 & 1, w1, {w2, w3}};
+    return w0 >> 1;
+  }
+};
+
+// the int32 words of ScanState's scratch for `tiles` tiles
+long long scan_state_words(long long tiles) { return 4 + 4 * tiles; }
+
+ScanState scan_state(int32_t* scratch) {
+  return ScanState{scratch, scratch + 1, reinterpret_cast<int4*>(scratch + 4)};
 }
 
-// pass 1: the block's aggregate
+// one tile a block, taken by ticket (compact.cuh has the steps)
 __global__ void __launch_bounds__(kScanThreads)
-run_scan_reduce_kernel(const int32_t* __restrict__ key, int32_t n, Agg* __restrict__ agg) {
-  __shared__ Agg s[kScanThreads];
-  const int t = threadIdx.x;
-  s[t] = thread_tile(key, n, (long long)blockIdx.x * kScanTile + (long long)t * kScanItems);
+run_scan_tiles_kernel(const int32_t* __restrict__ key, int32_t n, const ScanState st,
+                      int32_t* __restrict__ srcpos, int32_t l_next, int32_t* __restrict__ count) {
+  constexpr int T = kScanThreads, I = kScanItems, kTile = kScanTile, kWarps = kScanWarps;
+  __shared__ int32_t keys[kScanNoted];
+  __shared__ int32_t stage[kScanStaged];
+  __shared__ Agg warp_total[kWarps];
+  __shared__ Agg tile_before;
+  __shared__ int32_t tile_ticket;
+  __shared__ int32_t warp_longest[kWarps];
+  const int t = threadIdx.x, lane = t & 31, w = t >> 5;
+  if (t == 0) tile_ticket = atomicAdd(st.ticket, 1);
   __syncthreads();
-#pragma unroll 1
-  for (int stride = 1; stride < kScanThreads; stride *= 2) {
-    if ((t & (2 * stride - 1)) == 0) s[t] = compact::combine(s[t], s[t + stride]);
-    __syncthreads();
+  const int32_t tile = tile_ticket;
+  const int32_t lo = tile * kTile;
+  const int32_t hi = n - lo < kTile ? n : lo + kTile;
+  // the keys, 16 bytes a thread on neighbouring addresses where the tile is whole
+  // and aligned, then each thread's run of I from shared memory
+  if (t == 0) keys[0] = lo > 0 ? key[lo - 1] : 0;
+  if (hi - lo == kTile && (reinterpret_cast<uintptr_t>(key) & 15) == 0) {
+    const int4* src = reinterpret_cast<const int4*>(key + lo);
+#pragma unroll
+    for (int r = 0; r < kTile / 4 / T; ++r) {
+      const int q = r * T + t;
+      const int4 v = __ldg(src + q);
+      keys[compact::noted(4 * q + 1)] = v.x;
+      keys[compact::noted(4 * q + 2)] = v.y;
+      keys[compact::noted(4 * q + 3)] = v.z;
+      keys[compact::noted(4 * q + 4)] = v.w;
+    }
+  } else {
+    for (int i = t; i < hi - lo; i += T) keys[compact::noted(i + 1)] = key[lo + i];
   }
-  if (t == 0) agg[blockIdx.x] = s[0];
-}
-
-// pass 2, one block: the blocks' aggregates become their exclusive prefixes,
-// in place; the survivor count and a zero longest run for pass 3
-__global__ void __launch_bounds__(kBlocksThreads)
-run_scan_blocks_kernel(Agg* __restrict__ agg, int32_t blocks, int32_t* __restrict__ count,
-                       int32_t* __restrict__ longest) {
-  __shared__ Agg s[kBlocksThreads];
-  const int t = threadIdx.x;
-  Agg carry = compact::identity();
-#pragma unroll 1
-  for (int32_t base = 0; base < blocks; base += kBlocksThreads) {
-    const int32_t b = base + t;
-    s[t] = b < blocks ? agg[b] : compact::identity();
-    __syncthreads();
-    block_scan<kBlocksThreads>(s);
-    if (b < blocks) agg[b] = compact::combine(carry, t > 0 ? s[t - 1] : compact::identity());
-    carry = compact::combine(carry, s[kBlocksThreads - 1]);
-    __syncthreads();
-  }
-  if (t == 0) {
-    *count = carry.lefts[0];
-    *longest = 0;
-  }
-}
-
-// pass 3: each tile from its prefix; the block's longest run into `longest`;
-// the slots no survivor reaches get n - 1
-__global__ void __launch_bounds__(kScanThreads)
-run_scan_apply_kernel(const int32_t* __restrict__ key, int32_t n, const Agg* __restrict__ prefix,
-                      int32_t* __restrict__ srcpos, int32_t l_next,
-                      const int32_t* __restrict__ count, int32_t* __restrict__ longest) {
-  __shared__ Agg s[kScanThreads];
-  __shared__ int32_t warp_longest[kScanThreads / 32];
-  const int t = threadIdx.x;
-  const long long lo = (long long)blockIdx.x * kScanTile + (long long)t * kScanItems;
-  s[t] = thread_tile(key, n, lo);
   __syncthreads();
-  block_scan<kScanThreads>(s);
+  // each thread's run of I keys in registers, the key before it first
+  const int32_t t_lo = lo + t * I;
+  const int32_t t_hi = hi - t_lo < I ? hi : t_lo + I;
+  compact::RunKeys<I> rk;
+  rk.lo = t_lo;
+#pragma unroll
+  for (int j = 0; j <= I; ++j) rk.k[j] = keys[compact::noted(t * I + j)];
+  const Agg mine = t_lo < hi ? compact::tile_aggregate<I>(rk, t_lo, t_hi) : compact::identity();
+  // the block's scan: each warp's lanes, then the warps' totals in order
+  const warp::Group<32> g{(uint32_t)lane};
+  const Agg incl = compact::scan_lanes<32>(g, mine);
+  const Agg below = compact::shfl_agg(g, incl, lane - 1);
+  if (lane == 31) warp_total[w] = incl;
+  __syncthreads();
+  Agg warps_before = compact::identity(), total = compact::identity();
+#pragma unroll
+  for (int v = 0; v < kWarps; ++v) {
+    if (v < w) warps_before = compact::combine(warps_before, warp_total[v]);
+    total = compact::combine(total, warp_total[v]);
+  }
+  // the tile's prefix: publish the aggregate, look back, publish the prefix
+  if (w == 0) {
+    Agg before = compact::identity();
+    if (tile == 0) {
+      if (lane == 0) st.publish(0, compact::kPrefix, total);
+    } else {
+      if (lane == 0) st.publish(tile, compact::kAggregate, total);
+      before = compact::look_back<32>(g, st, tile);
+      if (lane == 0) st.publish(tile, compact::kPrefix, compact::combine(before, total));
+    }
+    if (lane == 0) {
+      tile_before = before;
+      if (hi == n) *count = compact::combine(before, total).lefts[0];
+    }
+  }
+  __syncthreads();
+  const Agg before = tile_before;
+  const int32_t first = before.lefts[0];
+  const int32_t end = compact::combine(before, total).lefts[0];
   int32_t run = 0;
-  if (lo < n) {
-    const Agg before =
-        compact::combine(prefix[blockIdx.x], t > 0 ? s[t - 1] : compact::identity());
-    const long long hi = lo + kScanItems < n ? lo + kScanItems : n;
-    run = compact::apply_tile(key, (int32_t)lo, (int32_t)hi, before, srcpos, l_next);
+  if (t_lo < hi) {
+    const Agg mine_before = compact::combine(
+        compact::combine(before, warps_before), lane > 0 ? below : compact::identity());
+    run = compact::apply_tile<I>(rk, t_lo, t_hi, mine_before, compact::Staged{stage, first},
+                                 l_next);
   }
+  __syncthreads();
+  // the tile's survivors, slots [first, end) below l_next, in order
+  const int32_t stop = end < l_next ? end : l_next;
+  for (int32_t s = first + t; s < stop; s += T) srcpos[s] = stage[compact::noted(s - first)];
 #pragma unroll
   for (int d = 16; d > 0; d /= 2) run = max(run, __shfl_xor_sync(0xffffffffu, run, d));
-  if ((t & 31) == 0) warp_longest[t / 32] = run;
+  if (lane == 0) warp_longest[w] = run;
   __syncthreads();
   if (t == 0) {
-    for (int w = 1; w < kScanThreads / 32; ++w) run = max(run, warp_longest[w]);
-    atomicMax(longest, run);
+    for (int v = 1; v < kWarps; ++v) run = max(run, warp_longest[v]);
+    atomicMax(st.longest, run);
   }
-  const long long stride = (long long)gridDim.x * kScanThreads;
-  for (long long j = (long long)*count + (long long)blockIdx.x * kScanThreads + t; j < l_next;
-       j += stride) {
-    srcpos[j] = n - 1;
+}
+
+// after the tiles: the slots no survivor reaches get n - 1; the longest run
+// moves out; the scan's state is left zero
+__global__ void __launch_bounds__(kFillThreads)
+run_scan_fill_kernel(const ScanState st, int32_t tiles, int32_t n, int32_t* __restrict__ srcpos,
+                     int32_t l_next, const int32_t* __restrict__ count,
+                     int32_t* __restrict__ longest) {
+  const long long i = (long long)blockIdx.x * kFillThreads + threadIdx.x;
+  const long long stride = (long long)gridDim.x * kFillThreads;
+  for (long long j = *count + i; j < l_next; j += stride) srcpos[j] = n - 1;
+  for (long long t = i; t < tiles; t += stride) st.tile[t] = make_int4(0, 0, 0, 0);
+  if (i == 0) {
+    *longest = *st.longest;
+    *st.longest = 0;
+    *st.ticket = 0;
   }
 }
 
@@ -270,31 +351,35 @@ bool is_fq381(const uint32_t* p_host, uint32_t n0) {
   return n0 == fq381::N0;
 }
 
-long long scan_blocks(long long n) { return (n + kScanTile - 1) / kScanTile; }
+long long scan_tiles(long long n) { return (n + kScanTile - 1) / kScanTile; }
 
 }  // namespace
 
 extern "C" {
 
-// the int32 words of scratch run_scan needs for n keys (an aggregate a block)
-long long zk_run_scan_scratch_words(long long n) {
-  return scan_blocks(n) * (long long)(sizeof(Agg) / sizeof(int32_t));
-}
+// the int32 words of the scratch run_scan needs for n keys (a 16-byte record
+// a tile)
+long long zk_run_scan_scratch_words(long long n) { return scan_state_words(scan_tiles(n)); }
 
-// key: n sorted int32 keys, 1 <= n < 2^31; scratch: zk_run_scan_scratch_words(n)
-// int32; srcpos: l_next int32, 1 <= l_next < 2^31; count, longest: one int32 each
+// key: n sorted int32 keys, 1 <= n < 2^31; scratch: at least
+// zk_run_scan_scratch_words(n) int32, 16-byte aligned, zero (each launch leaves
+// it zero again; launches that share it run one after another); srcpos: l_next
+// int32, 1 <= l_next < 2^31; count, longest: one int32 each
 int zk_run_scan(const void* key, long long n, void* scratch, void* srcpos, long long l_next,
                 void* count, void* longest, void* stream) {
   if (n < 1 || n >= (1LL << 31) || l_next < 1 || l_next >= (1LL << 31)) return -1;
-  const long long blocks = scan_blocks(n);
-  cudaStream_t st = (cudaStream_t)stream;
-  run_scan_reduce_kernel<<<(unsigned)blocks, kScanThreads, 0, st>>>(
-      (const int32_t*)key, (int32_t)n, (Agg*)scratch);
-  run_scan_blocks_kernel<<<1, kBlocksThreads, 0, st>>>((Agg*)scratch, (int32_t)blocks,
-                                                       (int32_t*)count, (int32_t*)longest);
-  run_scan_apply_kernel<<<(unsigned)blocks, kScanThreads, 0, st>>>(
-      (const int32_t*)key, (int32_t)n, (const Agg*)scratch, (int32_t*)srcpos, (int32_t)l_next,
-      (const int32_t*)count, (int32_t*)longest);
+  if ((reinterpret_cast<uintptr_t>(scratch) & 15) != 0) return -1;
+  const ScanState st = scan_state((int32_t*)scratch);
+  const long long tiles = scan_tiles(n);
+  cudaStream_t s = (cudaStream_t)stream;
+  run_scan_tiles_kernel<<<(unsigned)tiles, kScanThreads, 0, s>>>(
+      (const int32_t*)key, (int32_t)n, st, (int32_t*)srcpos, (int32_t)l_next, (int32_t*)count);
+  const long long most = l_next > tiles ? l_next : tiles;
+  long long fill_blocks = (most + kFillThreads * kFillItems - 1) / (kFillThreads * kFillItems);
+  if (fill_blocks > kFillMaxBlocks) fill_blocks = kFillMaxBlocks;
+  run_scan_fill_kernel<<<(unsigned)fill_blocks, kFillThreads, 0, s>>>(
+      st, (int32_t)tiles, (int32_t)n, (int32_t*)srcpos, (int32_t)l_next, (const int32_t*)count,
+      (int32_t*)longest);
   return (int)cudaGetLastError();
 }
 

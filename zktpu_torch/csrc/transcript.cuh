@@ -33,6 +33,7 @@
 
 #include "keccak.cuh"
 #include "mont.cuh"
+#include "warp.cuh"
 
 namespace transcript {
 
@@ -40,8 +41,6 @@ constexpr int W = 8;
 constexpr int kMaxElems = 3;
 // a pending tail is under one block: at most 16 whole lanes
 constexpr int kMaxPrefixLanes = keccak::kRateLanes - 1;
-// prefix + elements: at most 16 + 12 lanes, two blocks
-constexpr int kMaxBlocks = 2;
 constexpr uint64_t kTopBit = 1ull << 63;
 
 // What a launch takes by value: the field (p, n0), R^2 mod p and 1/2 in
@@ -74,74 +73,105 @@ MT_FN int interpolate(uint32_t (&e)[kMaxElems][W], const Consts& C) {
   mont::mul<W>(c2, C.inv2, t, C.M);
   mont::sub<W>(c1, e[1], e[0], C.M);
   mont::sub<W>(c1, c1, c2, C.M);
+  uint32_t any[kMaxElems] = {0, 0, 0};
 #pragma unroll
   for (int j = 0; j < W; ++j) {
     e[1][j] = c1[j];
     e[2][j] = c2[j];
+    any[0] |= e[0][j];
+    any[1] |= c1[j];
+    any[2] |= c2[j];
   }
-  int m = kMaxElems;
-  while (m > 0) {
-    uint32_t any = 0;
-    for (int j = 0; j < W; ++j) any |= e[m - 1][j];
-    if (any) break;
-    --m;
-  }
-  return m;
+  return any[2] ? 3 : any[1] ? 2 : any[0] ? 1 : 0;
 }
 
-// prefix || m elements, padded, absorbed into s; returns the blocks absorbed.
-MT_FN int absorb(uint64_t (&s)[keccak::kLanes], const uint64_t* prefix, int prefix_lanes,
-                 const uint32_t (&e)[kMaxElems][W], int m) {
-  uint64_t buf[keccak::kRateLanes * kMaxBlocks];
-  for (int i = 0; i < keccak::kRateLanes * kMaxBlocks; ++i) buf[i] = 0;
-  for (int i = 0; i < prefix_lanes; ++i) buf[i] = prefix[i];
-  for (int q = 0; q < m; ++q) {
-    for (int l = 0; l < W / 2; ++l) {
-      buf[prefix_lanes + (W / 2) * q + l] = e[q][2 * l] | (uint64_t)e[q][2 * l + 1] << 32;
-    }
-  }
-  const int used = prefix_lanes + (W / 2) * m;
-  const int blocks = used / keccak::kRateLanes + 1;
-  buf[used] ^= 0x01;
-  buf[keccak::kRateLanes * blocks - 1] ^= kTopBit;
-  for (int b = 0; b < blocks; ++b) {
-#pragma unroll
-    for (int i = 0; i < keccak::kRateLanes; ++i) s[i] ^= buf[keccak::kRateLanes * b + i];
-    keccak::permute(s);
-  }
-  return blocks;
-}
-
-// One round. rows: (k, W + 1) lazy words, k = 2 or 3. The state starts at
-// zero (fresh) or at state_in's 25 lanes; prefix holds prefix_lanes lanes (the
-// last digest, or the host's pending tail). Writes the canonical rows (k, W)
-// (coefficients for k = 3, untrimmed: the trimmed ones are zero), the new
+// One round on a group of 32 lanes (a warp; warp.cuh). rows: (K, W + 1) lazy
+// words, K = 2 or 3. A steady round (First false) absorbs the last digest,
+// `prefix`'s 4 lanes, || the elements into a fresh state; the first round of a
+// proof or phase continues state_in's 25 lanes after the host's pending tail,
+// `prefix`'s prefix_lanes (at most 16) lanes. Writes the canonical rows (K, W)
+// (coefficients for K = 3, untrimmed: the trimmed ones are zero), the new
 // state's 25 lanes and the next challenge (W words, Montgomery form).
-MT_FN void round_step(const uint32_t* rows, int k, const uint64_t* state_in, int fresh,
+//
+// Every array index is a constant. The lanes split the work that does not
+// depend on itself: lane i < K takes row i's canonical value (a product), the
+// K values are shuffled to every lane, which interpolates and trims them (the
+// same instructions on every lane cost no more than on one); lane r < 4 K
+// holds the elements' r-th word pair and stores it, and lane t builds
+// absorbed lane t of each block (a prefix lane it loaded, a word pair shuffled
+// from lane t - prefix, or the pad bits). The permutation runs on 25 of the
+// lanes, a state lane each (keccak.cuh's permute_lanes); the digest's four
+// lanes are shuffled to every lane for the challenge's product. (The
+// unrolled one-thread permutation on every lane, the state in each lane's
+// registers, was slower: PERF.md.)
+template <int K, bool First, class Gr>
+MT_FN void round_step(const Gr& g, const uint32_t* rows, const uint64_t* state_in,
                       const uint64_t* prefix, int prefix_lanes, const Consts& C,
                       uint32_t* out_rows, uint64_t* state_out, uint32_t* challenge) {
+  static_assert(K == 2 || K == 3, "a round has 2 or 3 rows");
+  constexpr int R = keccak::kRateLanes;
+  const int lane = (int)g.lane;
+  const int P = First ? prefix_lanes : W / 2;
+  const uint64_t pre = lane < P ? prefix[lane] : 0;
+  uint32_t y[W];
+  canonical(y, rows + (lane < K ? lane : 0) * (W + 1), C.M);
   uint32_t e[kMaxElems][W];
-  for (int i = 0; i < k; ++i) canonical(e[i], rows + i * (W + 1), C.M);
-  const int m = k == 3 ? interpolate(e, C) : k;
-  for (int i = 0; i < k; ++i) {
 #pragma unroll
-    for (int j = 0; j < W; ++j) out_rows[i * W + j] = e[i][j];
+  for (int i = 0; i < kMaxElems; ++i) {
+#pragma unroll
+    for (int j = 0; j < W; ++j) e[i][j] = i < K ? g.shfl(y[j], i) : 0;
   }
-  uint64_t s[keccak::kLanes];
+  int m = K;
+  if constexpr (K == 3) m = interpolate(e, C);
+  uint64_t pair = 0;
 #pragma unroll
-  for (int i = 0; i < keccak::kLanes; ++i) s[i] = fresh ? 0 : state_in[i];
-  absorb(s, prefix, prefix_lanes, e, m);
-  uint32_t d[W], r[W];
+  for (int q = 0; q < K; ++q) {
+#pragma unroll
+    for (int l = 0; l < W / 2; ++l) {
+      if (lane == (W / 2) * q + l) pair = e[q][2 * l] | (uint64_t)e[q][2 * l + 1] << 32;
+    }
+  }
+  if (lane < (W / 2) * K) {
+    out_rows[2 * lane] = (uint32_t)pair;
+    out_rows[2 * lane + 1] = (uint32_t)(pair >> 32);
+  }
+  // absorbed lanes `lane` (block 0) and R + lane (block 1)
+  const int used = P + (W / 2) * m;
+  const int blocks = First ? used / R + 1 : 1;
+  const int last = R * blocks - 1;
+  const uint64_t from0 = warp::shfl64(g, pair, (uint32_t)(lane - P) & 31u);
+  uint64_t c0 = lane < P ? pre : lane < used ? from0 : 0;
+  c0 ^= (lane == used ? 0x01ull : 0ull) ^ (lane == last ? kTopBit : 0ull);
+  uint64_t c1 = 0;
+  if constexpr (First) {
+    const uint64_t from1 = warp::shfl64(g, pair, (uint32_t)(R + lane - P) & 31u);
+    c1 = R + lane < used ? from1 : 0;
+    c1 ^= (R + lane == used ? 0x01ull : 0ull) ^ (R + lane == last ? kTopBit : 0ull);
+  }
+  const keccak::LaneRoles roles = keccak::lane_roles(g.lane);
+  uint64_t a = First && lane < keccak::kLanes ? state_in[lane] : 0;
+#pragma unroll 1
+  for (int b = 0; b < blocks; ++b) {
+    a ^= lane < R ? (b == 0 ? c0 : c1) : 0;
+    keccak::permute_lanes(g, roles, a);
+  }
+  uint64_t d[W / 2];
+#pragma unroll
+  for (int l = 0; l < W / 2; ++l) d[l] = warp::shfl64(g, a, l);
+  if (lane < keccak::kLanes) state_out[lane] = a;
+  uint32_t dw[W], r[W];
 #pragma unroll
   for (int l = 0; l < W / 2; ++l) {
-    d[2 * l] = (uint32_t)s[l];
-    d[2 * l + 1] = (uint32_t)(s[l] >> 32);
+    dw[2 * l] = (uint32_t)d[l];
+    dw[2 * l + 1] = (uint32_t)(d[l] >> 32);
   }
-  mont::mul<W>(r, C.r2, d, C.M);
+  mont::mul<W>(r, C.r2, dw, C.M);
+  uint32_t word = 0;
 #pragma unroll
-  for (int i = 0; i < keccak::kLanes; ++i) state_out[i] = s[i];
-#pragma unroll
-  for (int j = 0; j < W; ++j) challenge[j] = r[j];
+  for (int j = 0; j < W; ++j) {
+    if (lane == j) word = r[j];
+  }
+  if (lane < W) challenge[lane] = word;
 }
 
 }  // namespace transcript

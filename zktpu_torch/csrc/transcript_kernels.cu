@@ -9,16 +9,21 @@
 //
 //   * keccak_f -- replaces zktpu/hash/keccak_device.py:keccak_f (:78). Keccak-f
 //     [1600] on each of B states (B, 25) uint64, one thread a state, the 25
-//     lanes in registers (keccak.cuh). Bound: the dependent chain of 24 rounds
-//     (a few thousand 32-bit operations one after another), not bytes (200 a
-//     state each way): at B = 1 the launch is its latency.
+//     lanes in registers and the 24 rounds unrolled (keccak.cuh). Bound: the
+//     dependent chain of 24 rounds (a few thousand 32-bit operations one after
+//     another), not bytes (200 a state each way): at B = 1 the launch is its
+//     latency.
 //   * round_step -- replaces the round of zktpu/gkr/fused_lazy.py:_big_round
 //     (:215) and of zktpu/sumcheck/fused.py:_device_prove (:192), all but the
 //     Pallas kernel and the fold: canonical values of the lazy rows, for GKR
 //     the interpolation and the trimmed length, the padded absorb of one or two
 //     blocks, the new state and the next challenge in Montgomery form
-//     (transcript.cuh has the steps). One thread: a single dependent chain of
-//     at most five Montgomery products and two permutations, latency-bound.
+//     (transcript.cuh has the steps). One warp: the rows' products on their
+//     own lanes, the absorbed lanes built a lane each, the permutation a state
+//     lane a lane with shuffles. A round is templated on its rows (2 or 3) and
+//     its kind (steady, or first with a pending tail), so every index is a
+//     constant: no stack frame. Latency-bound: at most three Montgomery
+//     products and two permutations one after another.
 //
 // The field comes by value (transcript::Consts: p, n0, R^2 mod p, 1/2), so one
 // binary serves BN254 Fq and BLS12-381 Fr; both fused provers need a 32-byte
@@ -37,6 +42,8 @@
 namespace {
 
 constexpr int kKeccakThreads = 128;
+// round_step: one warp
+constexpr int kRoundThreads = 32;
 
 __global__ void __launch_bounds__(kKeccakThreads)
 keccak_f_kernel(const uint64_t* __restrict__ in, uint64_t* __restrict__ out, long long n) {
@@ -50,13 +57,24 @@ keccak_f_kernel(const uint64_t* __restrict__ in, uint64_t* __restrict__ out, lon
   for (int l = 0; l < keccak::kLanes; ++l) out[i * keccak::kLanes + l] = s[l];
 }
 
-__global__ void __launch_bounds__(1)
-round_step_kernel(const uint32_t* __restrict__ rows, int k, const uint64_t* __restrict__ state_in,
-                  int fresh, const uint64_t* __restrict__ prefix, int prefix_lanes,
+// a warp a round (transcript.cuh has the steps)
+template <int K, bool First>
+__global__ void __launch_bounds__(kRoundThreads)
+round_step_kernel(const uint32_t* __restrict__ rows, const uint64_t* __restrict__ state_in,
+                  const uint64_t* __restrict__ prefix, int prefix_lanes,
                   const transcript::Consts consts, uint32_t* __restrict__ out_rows,
                   uint64_t* __restrict__ state_out, uint32_t* __restrict__ challenge) {
-  transcript::round_step(rows, k, state_in, fresh, prefix, prefix_lanes, consts, out_rows,
-                         state_out, challenge);
+  transcript::round_step<K, First>(warp::Group<kRoundThreads>{threadIdx.x}, rows, state_in, prefix,
+                                   prefix_lanes, consts, out_rows, state_out, challenge);
+}
+
+template <int K, bool First>
+void launch_round_step(const void* rows, const void* state_in, const void* prefix,
+                       int prefix_lanes, const transcript::Consts& consts, void* out_rows,
+                       void* state_out, void* challenge, cudaStream_t stream) {
+  round_step_kernel<K, First><<<1, kRoundThreads, 0, stream>>>(
+      (const uint32_t*)rows, (const uint64_t*)state_in, (const uint64_t*)prefix, prefix_lanes,
+      consts, (uint32_t*)out_rows, (uint64_t*)state_out, (uint32_t*)challenge);
 }
 
 }  // namespace
@@ -90,9 +108,10 @@ int zk_round_step(const void* rows, int k, const void* state_in, int fresh, cons
     consts.inv2[j] = inv2[j];
   }
   consts.M.n0 = n0;
-  round_step_kernel<<<1, 1, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)rows, k, (const uint64_t*)state_in, fresh, (const uint64_t*)prefix,
-      prefix_lanes, consts, (uint32_t*)out_rows, (uint64_t*)state_out, (uint32_t*)challenge);
+  auto launch = k == 2 ? (fresh ? launch_round_step<2, false> : launch_round_step<2, true>)
+                       : (fresh ? launch_round_step<3, false> : launch_round_step<3, true>);
+  launch(rows, state_in, prefix, prefix_lanes, consts, out_rows, state_out, challenge,
+         (cudaStream_t)stream);
   return (int)cudaGetLastError();
 }
 

@@ -6,12 +6,15 @@ one compiled program: the whole sumcheck prover
 (``zktpu/gkr/fused_lazy.py:_big_round``), with the Keccak permutation of
 ``zktpu/hash/keccak_device.py:keccak_f``. These are plain XLA, not Pallas. Here
 they are two hand-written CUDA kernels (``csrc/transcript_kernels.cu``, on
-``csrc/keccak.cuh``, ``csrc/transcript.cuh`` and ``csrc/mont.cuh``), each with a
-plain PyTorch version beside it that computes the same bits:
+``csrc/keccak.cuh``, ``csrc/transcript.cuh``, ``csrc/mont.cuh`` and
+``csrc/warp.cuh``), each with a plain PyTorch version beside it that computes
+the same bits:
 
-  * ``keccak_f``   -- Keccak-f[1600] on a batch of (..., 25) int64 lane states;
-  * ``round_step`` -- one transcript round of a fused prover, from the summing
-                      kernel's lazy rows to the next challenge: canonical values,
+  * ``keccak_f``   -- Keccak-f[1600] on a batch of (..., 25) int64 lane states,
+                      one thread a state;
+  * ``round_step`` -- one transcript round of a fused prover on one warp,
+                      from the summing kernel's lazy rows to the next
+                      challenge: canonical values,
                       for GKR (k = 3 rows) the interpolation to coefficients and
                       the trimmed length, the padded absorb (the first round of a
                       proof or phase continues the host's sponge and its pending

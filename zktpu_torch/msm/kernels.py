@@ -28,7 +28,9 @@ beside it that computes the same words:
 check of their arithmetic on the card (no path runs it).
 
 ``run_scan`` and ``compact_add`` leave the survivor count on the device: a
-round needs no read-back. The plain versions are the port's earlier eager code:
+round needs no read-back. ``run_scan`` is one pass over the keys with a
+decoupled look-back, its tiles' state kept in a scratch buffer for each
+device and stream that every launch leaves zero. The plain versions are the port's earlier eager code:
 a ``cummax``, a ``cumsum`` and a ``searchsorted`` for the scan; gathers, a point
 addition at full width and two selects for the round; a doubling of c and an
 addition a window for the combine, all in plain PyTorch (``point_add_plain``,
@@ -303,20 +305,38 @@ def _raise_on(err: int, name: str) -> None:
 # wrappers
 # ----------------------------------------------------------------------
 
+#: (device, stream) -> run_scan's scratch: its tiles' state, zero between
+#: launches (each launch leaves it zero), grown as larger key sets come
+_scan_scratch: dict[tuple[torch.device, int], torch.Tensor] = {}
+
+
+def _scan_state(lib, n: int, device) -> torch.Tensor:
+    """The zeroed scratch of a run_scan over n keys on the current stream."""
+    key = (device, _stream(device))
+    words = lib.zk_run_scan_scratch_words(n)
+    scratch = _scan_scratch.get(key)
+    if scratch is None or scratch.shape[0] < words:
+        scratch = torch.zeros(words, dtype=torch.int32, device=device)
+        _scan_scratch[key] = scratch
+    return scratch
+
+
 def run_scan(key, l_next: int):
     """``run_scan_plain``'s results for sorted int32 keys; on the card the count
-    and the longest run stay there (three device kernels, no read-back)."""
+    and the longest run stay there (one pass over the keys with a look-back
+    and a fill of the slots past the count: two device kernels, no
+    read-back)."""
     global scan_slots
     n = _check_vector("run_scan key", key)
     _check_l_next(l_next)
     if key.device.type == "cpu":
         return run_scan_plain(key, l_next)
     lib = library()
-    scratch = torch.empty(lib.zk_run_scan_scratch_words(n), dtype=torch.int32, device=key.device)
     srcpos = torch.empty(l_next, dtype=torch.int32, device=key.device)
     count = torch.empty(1, dtype=torch.int32, device=key.device)
     longest = torch.empty(1, dtype=torch.int32, device=key.device)
     with torch.cuda.device(key.device):
+        scratch = _scan_state(lib, n, key.device)
         err = lib.zk_run_scan(key.data_ptr(), n, scratch.data_ptr(), srcpos.data_ptr(), l_next,
                               count.data_ptr(), longest.data_ptr(), _stream(key.device))
     _raise_on(err, "run_scan")

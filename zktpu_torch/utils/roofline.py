@@ -201,7 +201,7 @@ def ntt_cost(log_n: int) -> list:
 
 
 # ----------------------------------------------------------------------
-# the transcript kernels (``hash/kernels.py``): one thread a state or a round
+# the transcript kernels (``hash/kernels.py``): one thread a state, one warp a round
 # ----------------------------------------------------------------------
 
 _LANE_BYTES = 8
