@@ -78,16 +78,20 @@ started together), then
      ``fft_interpolate`` with their host packing apart.
 
 Before (14), the profiler counts the device kernels of phase 4's fused prove
-(at most 3 a round + 10) and of one of phase 7's fused GKR rounds (at most 5).
+(at most 3 a round + 10) and of a fused GKR phase of 2^10 entries (one, its
+``gkr_phase_tail``) and of 2^20 (a ``gkr_big_round`` a round above
+``fused_lazy.TAIL_MAX`` entries, and a tail).
 Then (14) each of the four paths runs once more under ``torch.profiler``, and
-the fourteen kernels are ranked by their device time on the paths less the
+the sixteen kernels are ranked by their device time on the paths less the
 bound of the lanes they covered there; on each path the device runs one kernel
 a launch of ``halves_sums``, ``fold_and_halves``, ``round_step``, ``keccak_f``,
-``compact_add`` and ``horner``, two of ``run_scan``, a ``round_step`` a round,
-no ``keccak_f``, a ``finish_rows`` only after ``gkr_round`` (none on the
-sumcheck path), and no device kernel of ``torch.cummax`` or
-``torch.searchsorted`` (named as a profile of each op on the card shows them),
-or the script fails. Last,
+``gkr_big_round``, ``gkr_phase_tail``, ``compact_add`` and ``horner``, two of
+``run_scan``; the sumcheck a ``round_step`` a round; the GKR paths a
+``gkr_big_round`` a round above ``fused_lazy.TAIL_MAX`` entries and a
+``gkr_phase_tail`` a phase, and no ``gkr_round``, ``finish_rows`` or
+``round_step``; no path a ``keccak_f``, and no device kernel of ``torch.cummax``
+or ``torch.searchsorted`` (named as a profile of each op on the card shows
+them), or the script fails. Last,
 
  15. proof bytes and the field oracle: ``mont_mul``, ``fold``, ``halves_sums``,
      ``fold_and_halves``, ``pow_static`` and ``inverse`` on the card against
@@ -139,14 +143,25 @@ or the script fails. Last,
      chain: each kernel against its plain version and the eager chain it
      replaced, with their times (CUDA events) beside the bounds; the
      quotient steps' Horner shapes and their one launch.
+ 19. the fused GKR phase kernels: ``gkr_big_round`` against its plain version
+     on stacks of 2^15 to 2^20 entries, a phase's first round and a steady one,
+     tables whose rounds trim to 0-3 coefficients, and three rounds back to
+     back at 2^20 / 2^15 / 2^20; ``gkr_phase_tail`` from every size 2 to
+     ``TAIL_MAX``, from a phase's first round and after a pending fold, pending
+     tails of one and two blocks, word for word; then each one's time (CUDA
+     events; device us by the profiler's clock) beside the parent's launches
+     for the same work (``fold``, ``gkr_round`` with its ``finish_rows``,
+     ``round_step``, a round), its plain version and its bound.
 
 The bounds are ``zktpu_torch/utils/roofline.py``'s, at the peaks it lists for
 the card (it raises on a card it does not list). Any failed comparison exits
 non-zero. The last line of the output is one JSON object, ``{"ok": true,
-"device": {...}}``; the line before it lists the fourteen kernels with their
+"device": {...}}``; the line before it lists the sixteen kernels with their
 launch counts (the four paths and phases 15 and 16), errors, times and bounds.
-The fused provers' transcript is ``round_step``'s: phases 3 and 5 count a
-launch a round, and no ``mont_mul`` or permutation of their own.
+The plain sumcheck's transcript is ``round_step``'s, a launch a round (phase
+3); a GKR phase is ``gkr_big_round`` and ``gkr_phase_tail`` launches, whose
+rounds run the same transcript step inside them (phase 5); neither makes a
+``mont_mul`` or permutation of its own.
 """
 
 from __future__ import annotations
@@ -176,6 +191,7 @@ from zktpu_torch.field import torch_backend as fb
 from zktpu_torch.field.host import vec_to_bytes
 from zktpu_torch.field.spec import BLS12_381_FQ, BLS12_381_FR, BN254_FQ, BN254_FR
 from zktpu_torch.gkr import fused_lazy
+from zktpu_torch.gkr import kernels as gk
 from zktpu_torch.gkr import lazy as gkr_lazy
 from zktpu_torch.gkr import protocol as gkr
 from zktpu_torch.gkr.circuit import ADD, MUL, Circuit
@@ -303,15 +319,18 @@ POINT_KERNEL_SOURCE = "zktpu_torch/csrc/point_kernels.cu"
 NTT_KERNEL_SOURCE = "zktpu_torch/csrc/ntt_kernels.cu"
 TRANSCRIPT_KERNEL_SOURCE = "zktpu_torch/csrc/transcript_kernels.cu"
 MSM_KERNEL_SOURCE = "zktpu_torch/csrc/msm_kernels.cu"
+GKR_PHASE_KERNEL_SOURCE = "zktpu_torch/csrc/gkr_phase_kernels.cu"
 #: the kernel sources, one nvcc each, all started together
 CUDA_STEMS = ("sumcheck_kernels", "point_kernels", "ntt_kernels", "transcript_kernels",
-              "msm_kernels")
+              "msm_kernels", "gkr_phase_kernels")
 #: the TPU kernel each replaces; the transcript and MSM kernels replace zktpu's
 #: device programs (XLA, not Pallas): keccak_f the permutation, round_step the
 #: round of gkr/fused_lazy.py:_big_round and of sumcheck/fused.py:_device_prove
 #: (:192); run_scan the scan of msm/pippenger.py:_compact_round and _max_run
 #: (:295), compact_add the rest of that round (its gathers, point_add_px at :180
-#: and its selects), horner the window combine _horner_multi
+#: and its selects), horner the window combine _horner_multi; gkr_big_round a
+#: fused GKR round (gkr/fused_lazy.py:_big_round), gkr_phase_tail the rest of a
+#: phase (_scan_phase_fixed)
 REPLACES = {
     "ntt_phase1": "zktpu/ntt/pallas_ntt.py:107",
     "ntt_stage": "zktpu/ntt/pallas_ntt.py:154",
@@ -327,6 +346,8 @@ REPLACES = {
     "run_scan": "zktpu/msm/pippenger.py:154",
     "compact_add": "zktpu/msm/pippenger.py:180",
     "horner": "zktpu/msm/pippenger.py:448",
+    "gkr_big_round": "zktpu/gkr/fused_lazy.py:216",
+    "gkr_phase_tail": "zktpu/gkr/fused_lazy.py:155",
 }
 #: launches the main path must make at 2^NUM_VARS. mont_mul: to_mont of the
 #: table, and the verifier's to_mont of the point and from_mont of the
@@ -344,16 +365,30 @@ EXPECTED_LAUNCHES = {
 }
 
 
+def phase_big_rounds(j: int) -> int:
+    """The rounds of a fused GKR phase on tables of 2^j entries that sum a table
+    above ``fused_lazy.TAIL_MAX`` entries (2^j, .., 2): a gkr_big_round each."""
+    return sum(1 for k in range(1, j + 1) if 1 << k > fused_lazy.TAIL_MAX)
+
+
+def gkr_big_rounds(n: int) -> int:
+    """gkr_big_round launches of ``prove_layers`` on a halving circuit of 2^n
+    inputs: the layer whose inputs have j variables runs two phases of 2^j."""
+    return sum(2 * phase_big_rounds(j) for j in range(1, n + 1))
+
+
 def gkr_expected_launches(n: int) -> dict[str, int]:
     """Launches of ``prove_layers`` (lazy, fused) + ``verify_layers`` (lazy) on a
     halving circuit of 2^n inputs. The layer whose inputs have j variables
-    (j = 1..n) runs 2j rounds.
+    (j = 1..n) runs 2j rounds, j a phase.
 
-    gkr_round and round_step: one a round, n(n+1) in all; the round's canonical
-    form, interpolation, absorb and challenge are round_step's, so a round makes
-    no mont_mul and no keccak_f.
-    fold: one a round; j for each of the layer's two input evaluations; one for
-    the output polynomial's evaluation, in the prover and again in the verifier.
+    gkr_big_round: one a round whose table is above ``fused_lazy.TAIL_MAX``
+    entries (6 at 2^18, 42 at 2^14); gkr_phase_tail: one a phase, 2n; the rounds' sums,
+    folds, canonical form, interpolation, absorb and challenge are theirs, so
+    the walk's sumcheck rounds launch no gkr_round, round_step, fold, mont_mul
+    or keccak_f.
+    fold: j for each of the layer's two input evaluations; one for the output
+    polynomial's evaluation, in the prover and again in the verifier.
     mont_mul, prover: a layer makes 2 + 3 for the phase tables, 2 for the gate
     masks, 2j for eq(r_b, .), 1 for the challenges' upload, 4(j-1) + 2 + 1 for
     the folded wiring coefficients (3 at the output layer) and 4 for the two
@@ -368,12 +403,14 @@ def gkr_expected_launches(n: int) -> dict[str, int]:
     verifier_mul = 4 * rounds + 6 * n + 2
     return {
         "mont_mul": prover_mul + verifier_mul,
-        "fold": rounds + rounds + 1 + 1,
-        "gkr_round": rounds,
+        "fold": rounds + 1 + 1,
+        "gkr_round": 0,
         "halves_sums": 0,
         "fold_and_halves": 0,
-        "round_step": rounds,
+        "round_step": 0,
         "keccak_f": 0,
+        "gkr_big_round": gkr_big_rounds(n),
+        "gkr_phase_tail": 2 * n,
     }
 
 
@@ -460,7 +497,8 @@ def template_args(mangled: str) -> list[str]:
 def resource_usage(log: str, needle: str) -> list[str]:
     """What ``nvcc --resource-usage`` printed for the kernels whose mangled name
     holds ``needle``: the template's arguments where it has them (``<W=8>`` for
-    the summing kernels' word count), then ptxas's own two lines."""
+    the summing kernels' word count; a lone bool as itself), then ptxas's own
+    two lines."""
     lines = log.splitlines()
     out = []
     for i, line in enumerate(lines):
@@ -468,7 +506,8 @@ def resource_usage(log: str, needle: str) -> list[str]:
             label = needle
             if needle + "I" in line:
                 args = template_args(line.split(needle + "I", 1)[1].split("EE", 1)[0] + "E")
-                label += f"<W={args[0]}>" if len(args) == 1 else "<" + ", ".join(args) + ">"
+                label += (f"<W={args[0]}>" if len(args) == 1 and args[0].isdigit()
+                          else "<" + ", ".join(args) + ">")
             out.append(f"{label}: {lines[i + 1].strip()}; "
                        f"{lines[i + 2].split(':', 1)[1].strip()}")
     return out
@@ -724,6 +763,7 @@ def phase_gkr_main_path(ctx):
 
     fk.reset_launches()
     tk.reset_launches()
+    gk.reset_launches()
     t0 = time.time()
     proved = gkr.prove_layers(circuit, inputs)
     torch.cuda.synchronize()
@@ -732,7 +772,7 @@ def phase_gkr_main_path(ctx):
     verdict = gkr.verify_layers(proved.proof, circuit, proved.input_evals)
     torch.cuda.synchronize()
     t_verify = time.time() - t0
-    launches = {**fk.launches, **tk.launches}
+    launches = {**fk.launches, **tk.launches, **gk.launches}
     say(f"  first run: inputs upload {t_upload:.3f}s  circuit evaluation {t_eval:.3f}s  "
         f"prove_layers {t_prove:.3f}s (uploads and evaluates again)  verify_layers {t_verify:.3f}s")
     say(f"  launches on the GKR path: {launches}")
@@ -934,8 +974,8 @@ def count_device_kernels(fn) -> int:
 
 
 def phase_gkr_times(ctx, circuit, inputs, proved) -> None:
-    """Warm prove_layers and verify_layers at 2^GKR_NUM_VARS inputs, the
-    synchronising calls of a proof, and the eager glue of a round."""
+    """Warm prove_layers and verify_layers at 2^GKR_NUM_VARS inputs and the
+    synchronising calls of a proof."""
     n = GKR_NUM_VARS
     proves, verifies = [], []
     for _ in range(3):
@@ -959,26 +999,8 @@ def phase_gkr_times(ctx, circuit, inputs, proved) -> None:
     say(f"  synchronising calls: prove_layers {syncs_prove} ({syncs_prove / n:.1f} a layer), "
         f"verify_layers {syncs_verify} ({syncs_verify / n:.1f} a layer)")
 
-    def host_ms(fn, reps=20):
-        fn()
-        torch.cuda.synchronize()
-        t0 = time.time()
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-        return (time.time() - t0) / reps * 1e3
-
-    state = torch.arange(25, dtype=torch.int64, device=ctx.device)
-    rows = torch.ones((3, ctx.num_words + fk.EXTRA_WORDS), dtype=torch.int32, device=ctx.device)
-    consts = fused_lazy._PhaseConsts(ctx, np.zeros(25, np.int64), np.zeros(8, np.int64))
-    ms_step = host_ms(lambda: tk.round_step(ctx, rows, state))
-    ms_first = host_ms(lambda: tk.round_step(ctx, rows, consts.state, consts.tail))
-    ms_plain = host_ms(lambda: tk.round_step_plain(ctx, rows, state), 5)
-    rounds = n * (n + 1)
-    say(f"  a fused round's transcript step, per call (host clock, synchronised): round_step "
-        f"{ms_step:.4f} ms (a phase's first, two blocks: {ms_first:.4f} ms), its plain version "
-        f"{ms_plain:.3f} ms; {rounds} a proof: {rounds * ms_step / 1e3:.3f} s of the warm "
-        f"prove_layers' {t_prove:.3f} s")
+    say(f"  the walk's {n * (n + 1)} sumcheck rounds: {gkr_big_rounds(n)} gkr_big_round and "
+        f"{2 * n} gkr_phase_tail launches, each round's transcript step inside them")
 
 
 #: device kernels of one fused 2^20 sumcheck prove and of one fused GKR round
@@ -987,12 +1009,12 @@ DEVICE_KERNELS_BEFORE = {"sumcheck prove": 13860, "GKR round": 1334}
 
 
 def phase_device_kernels(ctx, gctx) -> None:
-    """The device kernels of phase 4's warm 2^20 sumcheck prove and of one of
-    phase 7's fused GKR rounds, by the profiler: at most 3 a round + 10 for the
-    prove, at most 5 a round for the GKR phase (gkr_round, finish_rows,
-    round_step, fold), then one whole fused layer with its table building. Runs
-    last: once the profiler has been on, every later launch in the process
-    costs the host more."""
+    """The device kernels of phase 4's warm 2^20 sumcheck prove and of phase
+    7's fused GKR phases, by the profiler: at most 3 a round + 10 for the
+    prove; for a GKR phase of 2^10 entries one (its gkr_phase_tail), of 2^20
+    entries one a round above ``fused_lazy.TAIL_MAX`` and a tail; then one whole fused layer with
+    its table building. Runs last: once the profiler has been on, every later
+    launch in the process costs the host more."""
     n = GKR_NUM_VARS
     poly = MultilinearPoly.from_ints(ctx, benchmark_values(NUM_VARS))
     fused.prove(poly)
@@ -1005,18 +1027,21 @@ def phase_device_kernels(ctx, gctx) -> None:
     del poly
 
     rng = np.random.default_rng(3)
-    log_size = 10
-    tables = random_table(gctx, rng, 2, 2, 1 << log_size)
     transcript = Transcript(gctx.spec)
     transcript.append_field_elements([1, 2])
     pairs, tail = transcript.sponge().state_lanes()
     consts = fused_lazy._PhaseConsts(gctx, kd.pairs_to_lanes(pairs), kd.bytes_to_lanes(tail))
-    fused_lazy._device_phase(gctx, tables, consts)
-    kernels = count_device_kernels(lambda: fused_lazy._device_phase(gctx, tables, consts))
-    say(f"  one fused GKR phase of {log_size} rounds (phase 7's rounds): {kernels} device "
-        f"kernels, {kernels / log_size:g} a round (before the transcript kernels: "
-        f"{DEVICE_KERNELS_BEFORE['GKR round']} a round)")
-    check(kernels <= 5 * log_size, f"{kernels / log_size:g} device kernels a GKR round")
+    for log_size in (10, GKR_NUM_VARS):
+        tables = random_table(gctx, rng, 2, 2, 1 << log_size)
+        fused_lazy._device_phase(gctx, tables, consts)
+        gk.reset_launches()
+        kernels = count_device_kernels(lambda: fused_lazy._device_phase(gctx, tables, consts))
+        want = {"gkr_big_round": phase_big_rounds(log_size), "gkr_phase_tail": 1}
+        say(f"  one fused GKR phase of {log_size} rounds: {kernels} device kernels, launches "
+            f"{gk.launches} (before the transcript kernels: {DEVICE_KERNELS_BEFORE['GKR round']} "
+            f"a round; 4 a round before the phase kernels)")
+        check(gk.launches == want and kernels == sum(want.values()),
+              f"a GKR phase of 2^{log_size} entries: {kernels} device kernels for {gk.launches}")
 
     w_vars = 6
     layer_inputs = [int(v) for v in rng.integers(0, 1 << 61, size=1 << w_vars)]
@@ -1197,10 +1222,12 @@ def reset_all_launches() -> None:
     nk.reset_launches()
     tk.reset_launches()
     mk.reset_launches()
+    gk.reset_launches()
 
 
 def all_launches() -> dict[str, int]:
-    return {**fk.launches, **pk.launches, **nk.launches, **tk.launches, **mk.launches}
+    return {**fk.launches, **pk.launches, **nk.launches, **tk.launches, **mk.launches,
+            **gk.launches}
 
 
 def quotient_windows(n: int) -> list[int]:
@@ -1275,7 +1302,7 @@ def phase_kzg_main_path(ctx, circuit, inputs, layers_launches):
     walk = gkr_expected_launches(n)
     check(all(launches[name] >= walk[name] for name in walk),
           "the full proof launched the layer walk's kernels less often than the walk alone")
-    for name in ("gkr_round", "round_step"):
+    for name in ("gkr_round", "round_step") + gk.KERNEL_NAMES:
         check(launches[name] == walk[name] == layers_launches[name],
               f"{name} launches differ from the layer walk's")
 
@@ -1670,7 +1697,7 @@ def phase_ntt_times(ctx, results) -> dict[int, dict[str, dict]]:
 
 
 def all_lanes() -> dict[str, int]:
-    return {**fk.lanes, **pk.lanes, **nk.lanes, **tk.lanes, **mk.lanes}
+    return {**fk.lanes, **pk.lanes, **nk.lanes, **tk.lanes, **mk.lanes, **gk.lanes}
 
 
 #: run_scan's two device kernels, one of each a launch: the one pass over the
@@ -1754,7 +1781,7 @@ def profile_path(fn) -> dict:
         time.sleep(PROFILE_PAD_S)
     t_run = (end_ns - start_ns) / 1e9
     names = (fk.KERNEL_NAMES + pk.KERNEL_NAMES + nk.KERNEL_NAMES + tk.KERNEL_NAMES
-             + mk.KERNEL_NAMES + ("finish_rows",) + SCAN_PASSES)
+             + mk.KERNEL_NAMES + gk.KERNEL_NAMES + ("finish_rows",) + SCAN_PASSES)
     device_ms = {name: 0.0 for name in names}
     device_n = {name: 0 for name in names}
     pattern = re.compile(r"\b(" + "|".join(names) + r")_kernel\b")
@@ -1776,6 +1803,7 @@ def profile_path(fn) -> dict:
     device_ms["run_scan"] = sum(device_ms[name] for name in SCAN_PASSES)
     return {"launches": all_launches(), "lanes": all_lanes(), "doublings": pk.doublings,
             "rounds": dict(tk.rounds), "scan_slots": mk.scan_slots, "chains": dict(mk.chains),
+            "phase_calls": dict(gk.calls),
             "device_ms": device_ms, "device_n": device_n, "scan_ops": scan_op_runs(kernel_names),
             "seconds": t_run, "total_s": time.time() - t0,
             "edges_ms": (None if first_ns is None else
@@ -1813,17 +1841,20 @@ def check_msm_launches(path: str, p: dict) -> None:
 
 
 def check_one_launch(profiles: dict[str, dict]) -> None:
-    """halves_sums, fold_and_halves and the two transcript kernels are one
-    device kernel a wrapper launch, and finish_rows runs after gkr_round alone:
-    on every profiled path the device's count of each kernel equals its
-    wrapper's launches, so the sumcheck path (1 + 19 launches, no gkr_round)
-    runs no finish_rows; each path's transcript is a round_step a round (a
-    gkr_round a round on the GKR paths), and no path launches keccak_f (its
-    permutations run inside round_step). The MSM kernels as
-    ``check_msm_launches`` says, and the KZG path's window combines two horner
-    launches (the commitment's, every quotient step's), with no
+    """halves_sums, fold_and_halves, the two transcript kernels and the two GKR
+    phase kernels are one device kernel a wrapper launch, and finish_rows runs
+    after gkr_round alone: on every profiled path the device's count of each
+    kernel equals its wrapper's launches, so the sumcheck path (1 + 19
+    launches, no gkr_round) runs no finish_rows. The sumcheck's transcript is a
+    round_step a round; the GKR paths' rounds are a gkr_big_round each above
+    ``fused_lazy.TAIL_MAX`` entries and a gkr_phase_tail a phase, with no
+    gkr_round, finish_rows or round_step; no path launches keccak_f (its
+    permutations run inside round_step and the phase kernels). The MSM kernels
+    as ``check_msm_launches`` says, and the KZG path's window combines two
+    horner launches (the commitment's, every quotient step's), with no
     point_double."""
-    one_launch = fk._ONE_LAUNCH + tk.KERNEL_NAMES
+    one_launch = fk._ONE_LAUNCH + tk.KERNEL_NAMES + gk.KERNEL_NAMES
+    walk = gkr_expected_launches(GKR_NUM_VARS)
     for path, p in profiles.items():
         ran, launched = p["device_n"], p["launches"]
         for name in one_launch:
@@ -1833,9 +1864,11 @@ def check_one_launch(profiles: dict[str, dict]) -> None:
               f"{path}: {ran['finish_rows']} finish_rows kernels ran for "
               f"{launched['gkr_round']} gkr_round launches")
         check(launched["keccak_f"] == 0, f"{path} launched keccak_f")
-        rounds = NUM_VARS if path == "sumcheck" else launched["gkr_round"]
-        check(launched["round_step"] == rounds,
-              f"{path}: {launched['round_step']} round_step launches for {rounds} rounds")
+        check(launched["round_step"] == (NUM_VARS if path == "sumcheck" else 0),
+              f"{path}: {launched['round_step']} round_step launches")
+        for name in ("gkr_round",) + gk.KERNEL_NAMES:
+            want = walk[name] if path.startswith("gkr") else 0
+            check(launched[name] == want, f"{path}: {launched[name]} {name} launches, not {want}")
         check_msm_launches(path, p)
     kzg = profiles["gkr_kzg"]
     check(kzg["launches"]["horner"] == 2 and kzg["launches"]["point_double"] == 0
@@ -1847,26 +1880,33 @@ def check_one_launch(profiles: dict[str, dict]) -> None:
               f"profiled sumcheck: {sumcheck['launches'][name]} {name} launches")
     check(sumcheck["device_n"]["finish_rows"] == 0, "finish_rows ran on the sumcheck path")
     say("  one device kernel a launch of halves_sums, fold_and_halves, round_step, keccak_f, "
-        "compact_add and horner on every path, two of run_scan, finish_rows only after "
-        "gkr_round, no cummax or searchsorted kernel: " + ", ".join(
+        "gkr_big_round, gkr_phase_tail, compact_add and horner on every path, two of run_scan, "
+        "no gkr_round, finish_rows or round_step on the GKR paths, no cummax or searchsorted "
+        "kernel: " + ", ".join(
             f"{path} {p['device_n']['halves_sums']} + {p['device_n']['fold_and_halves']}, "
-            f"round_step {p['device_n']['round_step']}, finish_rows {p['device_n']['finish_rows']}, "
+            f"round_step {p['device_n']['round_step']}, gkr_big_round "
+            f"{p['device_n']['gkr_big_round']}, gkr_phase_tail {p['device_n']['gkr_phase_tail']}, "
+            f"gkr_round {p['device_n']['gkr_round']}, finish_rows {p['device_n']['finish_rows']}, "
             f"run_scan kernels {[p['device_n'][name] for name in SCAN_PASSES]}, compact_add "
             f"{p['device_n']['compact_add']}, horner {p['device_n']['horner']}, "
             f"scan ops {p['scan_ops']}" for path, p in profiles.items()))
 
 
 def print_ranking(kernels: list[dict], profiles: dict[str, dict]) -> list[dict]:
-    """The fourteen kernels ranked by device ms on the four paths (one profiled run
+    """The sixteen kernels ranked by device ms on the four paths (one profiled run
     of each) less the bound of the lanes they covered there; then, for
     comparison, the earlier ranking (launches x (ms - bound_ms) at each row's
     size), which prices every launch at the row's width."""
-    rounds, chains = {}, {}  # round_step's launches and horner's segments by kind
+    # round_step's launches, horner's segments and the GKR phase kernels'
+    # launches by kind
+    rounds, chains, phase_calls = {}, {}, {}
     for p in profiles.values():
         for kind, n in p["rounds"].items():
             rounds[kind] = rounds.get(kind, 0) + n
         for kind, n in p["chains"].items():
             chains[kind] = chains.get(kind, 0) + n
+        for kind, n in p["phase_calls"].items():
+            phase_calls[kind] = phase_calls.get(kind, 0) + n
     scan_slots = sum(p["scan_slots"] for p in profiles.values())
     rows = []
     for k in kernels:
@@ -1876,7 +1916,8 @@ def print_ranking(kernels: list[dict], profiles: dict[str, dict]) -> list[dict]:
         doublings = sum(p["doublings"] for p in profiles.values()) if name == "point_double" else 0
         device = sum(p["device_ms"][name] for p in profiles.values())
         bound = roofline.lanes_bound_ms(name, lanes, doublings, rounds=rounds,
-                                        scan_slots=scan_slots, chains=chains)
+                                        scan_slots=scan_slots, chains=chains,
+                                        phase_calls=phase_calls)
         rows.append({"name": name, "launches": launches, "lanes": lanes, "device_ms": device,
                      "bound_ms": bound, "loss_ms": device - bound})
     rows.sort(key=lambda r: -r["loss_ms"])
@@ -2832,6 +2873,174 @@ def phase_msm_kernels(gctx, inputs, taus) -> tuple[dict[str, int], dict[str, dic
 
 # ----------------------------------------------------------------------
 
+# ----------------------------------------------------------------------
+# phase 19: the fused GKR phase kernels
+# ----------------------------------------------------------------------
+
+#: gkr_big_round against its plain version on stacks of 2^15 to 2^20 entries
+#: (a phase's first round and a steady one, every trim), and its times there
+BIG_ROUND_LOGS = tuple(range(15, 21))
+#: pending tails of the first rounds checked: 8 lanes keep 0-2 coefficients in
+#: one block and carry 3 into two, 16 carry 1-3 and leave 0 in one
+PHASE_TAIL_LANES = (8, 16)
+#: sizes at which gkr_phase_tail is checked at every trim, the others taking
+#: one trim each in turn
+TAIL_ALL_TRIMS_LOGS = (1, 2, 3)
+
+
+def phase_stack(ctx, rng, size: int, trim: int):
+    """A (2, 2, size, W) stack on the card whose rounds trim to ``trim``
+    coefficients: 0 all zero; 1 every table constant; 2 the factor-1 tables
+    constant (each term linear in t); 3 random, p - 1 and 1 among its entries."""
+    if trim == 0:
+        return torch.zeros((2, 2, size, ctx.num_words), dtype=torch.int32, device=ctx.device)
+    if trim == 3:
+        return random_table(ctx, rng, 2, 2, size, edges=(ctx.spec.modulus - 1, 1))
+    stack = random_table(ctx, rng, 2, 2, size)
+    if trim == 1:
+        stack[:] = stack[:, :, :1].clone()
+    else:
+        stack[:, 1] = stack[:, 1, :1].clone()
+    return stack
+
+
+def phase_round_inputs(ctx, rng, size: int, trim: int, first: bool, tail_lanes: int):
+    """(stack, challenge or None, state, pending tail or None) of a round or a
+    tail: a phase's first round continues a random sponge after a random tail,
+    a steady one folds at a random challenge first."""
+    stack = phase_stack(ctx, rng, size, trim)
+    state = random_lanes(rng, 25, ctx.device)
+    if first:
+        return stack, None, state, random_lanes(rng, tail_lanes, ctx.device)
+    return stack, random_table(ctx, rng), state, None
+
+
+def phase_err(got, want) -> int:
+    """The largest word difference of two results of a phase kernel."""
+    return max(lane_err(g, w) if g.dtype == torch.int64 else max_abs_err(g, w)
+               for g, w in zip(got, want))
+
+
+def parent_round(ctx, stack, r, state, tail):
+    """The parent's launches for one round: fold (where r is given), gkr_round
+    (with its finish_rows) and round_step."""
+    if r is not None:
+        stack = fk.fold(ctx, stack, r)
+    return tk.round_step(ctx, fk.gkr_round(ctx, stack), state, tail)
+
+
+def parent_tail(ctx, stack, r, state, tail):
+    """The parent's launches for a phase tail: a round of them each, then the
+    last fold."""
+    for k in range(gk.tail_rounds(stack.shape[2], r is not None)):
+        if r is not None:
+            stack = fk.fold(ctx, stack, r)
+        _, state, r = tk.round_step(ctx, fk.gkr_round(ctx, stack), state,
+                                    tail if k == 0 else None)
+    return fk.fold(ctx, stack, r)[0, 0, 0]
+
+
+def phase_gkr_phase_kernels(gctx) -> tuple[dict[str, int], dict[str, dict]]:
+    """gkr_big_round and gkr_phase_tail against their plain versions, word for
+    word, then their times beside the parent's launches for the same work."""
+    t0 = time.time()
+    rng = np.random.default_rng(19)
+    errs = {name: 0 for name in gk.KERNEL_NAMES}
+    lib = gk.library()
+    say(f"  gkr_phase_tail's grid: at most {gk._resident(lib, gctx.device)} blocks "
+        f"(resident, cooperative), gkr_big_round's at most {gk.MAX_BIG_BLOCKS}; TAIL_MAX "
+        f"{fused_lazy.TAIL_MAX}")
+    checked = 0
+    for log in BIG_ROUND_LOGS:
+        for trim in range(4):
+            for first in (True, False):
+                args = phase_round_inputs(gctx, rng, 1 << log, trim, first,
+                                          PHASE_TAIL_LANES[trim % 2])
+                err = phase_err(gk.gkr_big_round(gctx, *args), gk.gkr_big_round_plain(gctx, *args))
+                check(err == 0, f"gkr_big_round differs from its plain version at 2^{log}, "
+                      f"trim {trim}, {'first' if first else 'steady'}")
+                errs["gkr_big_round"] = max(errs["gkr_big_round"], err)
+                checked += 1
+        torch.cuda.empty_cache()
+    # back to back at other widths: the ticket the last block resets
+    wide = phase_round_inputs(gctx, rng, 1 << 20, 3, False, 0)
+    narrow = phase_round_inputs(gctx, rng, 1 << 15, 3, False, 0)
+    want_wide = gk.gkr_big_round_plain(gctx, *wide)
+    for args, want in ((wide, want_wide), (narrow, gk.gkr_big_round_plain(gctx, *narrow)),
+                       (wide, want_wide)):
+        check(phase_err(gk.gkr_big_round(gctx, *args), want) == 0,
+              "gkr_big_round differs from its plain version back to back")
+    del wide, narrow, want_wide
+    say(f"  gkr_big_round: {checked} rounds of 2^{BIG_ROUND_LOGS[0]}-2^{BIG_ROUND_LOGS[-1]} "
+        f"entries (first and steady, trims 0-3) and 3 back to back at 2^20 / 2^15 / 2^20: max "
+        f"error {errs['gkr_big_round']}")
+    tail_max_log = fused_lazy.TAIL_MAX.bit_length() - 1
+    checked = 0
+    for log in range(1, tail_max_log + 1):
+        all_trims = log in TAIL_ALL_TRIMS_LOGS
+        for first in (True, False):
+            trims = range(4) if all_trims else ((log + first) % 4,)
+            for trim in trims:
+                # a steady tail starts with the fold of twice its first table
+                size = 1 << log if first else 1 << (log + 1)
+                args = phase_round_inputs(gctx, rng, size, trim, first,
+                                          PHASE_TAIL_LANES[(log + trim) % 2])
+                got = gk.gkr_phase_tail(gctx, *args)
+                want = gk.gkr_phase_tail_plain(gctx, *args)
+                err = phase_err(got, want)
+                check(err == 0, f"gkr_phase_tail differs from its plain version at 2^{log}, "
+                      f"trim {trim}, {'first' if first else 'after a fold'}")
+                check({tk.trim_len(rows) for rows in want[0]} == {trim},
+                      f"the tables of trim {trim} at 2^{log} trim otherwise")
+                errs["gkr_phase_tail"] = max(errs["gkr_phase_tail"], err)
+                checked += 1
+    say(f"  gkr_phase_tail: {checked} tails from every size 2-2^{tail_max_log}, first and after "
+        f"a fold, trims 0-3, pending tails of {PHASE_TAIL_LANES} lanes: max error "
+        f"{errs['gkr_phase_tail']}")
+
+    flush = torch.empty(256 << 20, dtype=torch.int8, device=gctx.device)
+    times = {}
+    for log in BIG_ROUND_LOGS:
+        for first in ((True, False) if log == BIG_ROUND_LOGS[-1] else (False,)):
+            args = phase_round_inputs(gctx, rng, 1 << log, 3, first, 8)
+            ms = time_events(lambda: gk.gkr_big_round(gctx, *args), TIMED_RUNS, flush)
+            dev_us = device_ms(lambda: gk.gkr_big_round(gctx, *args), "gkr_big_round", 50) * 1e3
+            parent = time_events(lambda: parent_round(gctx, *args), TIMED_RUNS, flush)
+            plain = time_events(lambda: gk.gkr_big_round_plain(gctx, *args), 1, flush)
+            b = roofline.bound(*roofline.gkr_big_round_cost(1 << log, not first))
+            floor = roofline.gkr_phase_floor_ms("gkr_big_round", 1 << log, not first)
+            say(f"  gkr_big_round 2^{log} {'first' if first else 'steady'}: {ms:.4f} ms (CUDA "
+                f"events, median, L2 flushed), device {dev_us:.2f} us; the parent's fold + "
+                f"gkr_round + finish_rows + round_step {parent:.4f} ms; plain {plain:.2f} ms; bound "
+                f"{b.ms:.4f} ms by {b.by} (+ round_step's one-warp floor {floor * 1e3:.3f} us: "
+                f"{(b.ms + floor) / ms:.1%} of it)")
+            if log == BIG_ROUND_LOGS[-1] and not first:
+                times["gkr_big_round"] = {"ms": ms, "plain_ms": plain, "bound_ms": b.ms,
+                                          "bound_by": b.by}
+    for log, first in [(tail_max_log + 1, False)] + [(k, True) for k in (tail_max_log, 14, 10, 6,
+                                                                          1)]:
+        args = phase_round_inputs(gctx, rng, 1 << log, 3, first, 8)
+        ms = time_events(lambda: gk.gkr_phase_tail(gctx, *args), TIMED_RUNS)
+        dev_us = device_ms(lambda: gk.gkr_phase_tail(gctx, *args), "gkr_phase_tail", 50) * 1e3
+        parent = time_events(lambda: parent_tail(gctx, *args), TIMED_RUNS)
+        plain = time_events(lambda: gk.gkr_phase_tail_plain(gctx, *args), 1)
+        rounds = gk.tail_rounds(1 << log, not first)
+        b = roofline.bound(*roofline.gkr_phase_tail_cost(1 << log, not first))
+        floor = roofline.gkr_phase_floor_ms("gkr_phase_tail", 1 << log, not first)
+        say(f"  gkr_phase_tail from 2^{log} {'first' if first else 'after a fold'}, {rounds} "
+            f"rounds: {ms:.4f} ms (CUDA events, median), device {dev_us:.2f} us "
+            f"({dev_us / rounds:.2f} a round); the parent's {4 * rounds + 1} launches "
+            f"{parent:.4f} ms; plain {plain:.1f} ms; bound {b.ms * 1e3:.4f} us by {b.by} (+ "
+            f"round_step's one-warp floors {floor * 1e3:.3f} us: {(b.ms + floor) / ms:.1%} of it)")
+        if not first:
+            times["gkr_phase_tail"] = {"ms": ms, "plain_ms": plain, "bound_ms": b.ms,
+                                       "bound_by": b.by}
+    del flush
+    torch.cuda.empty_cache()
+    say(f"  (phase 19 took {time.time() - t0:.1f}s)")
+    return errs, times
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
@@ -2847,11 +3056,13 @@ def main() -> int:
     nk.library()
     tk.library()
     mk.library()
+    gk.library()
     say(f"    kernels built from {KERNEL_SOURCE} ({_build.build_seconds['sumcheck_kernels']:.1f}s), "
         f"{POINT_KERNEL_SOURCE} ({_build.build_seconds['point_kernels']:.1f}s), "
         f"{NTT_KERNEL_SOURCE} ({_build.build_seconds['ntt_kernels']:.1f}s), "
-        f"{TRANSCRIPT_KERNEL_SOURCE} ({_build.build_seconds['transcript_kernels']:.1f}s) and "
-        f"{MSM_KERNEL_SOURCE} ({_build.build_seconds['msm_kernels']:.1f}s), side by "
+        f"{TRANSCRIPT_KERNEL_SOURCE} ({_build.build_seconds['transcript_kernels']:.1f}s), "
+        f"{MSM_KERNEL_SOURCE} ({_build.build_seconds['msm_kernels']:.1f}s) and "
+        f"{GKR_PHASE_KERNEL_SOURCE} ({_build.build_seconds['gkr_phase_kernels']:.1f}s), side by "
         f"side in {time.time() - t0:.1f}s (0.0 = already built)")
     for stem, needles in (("sumcheck_kernels", ("gkr_round_kernel", "halves_sums_kernel",
                                                 "fold_and_halves_kernel")),
@@ -2859,7 +3070,8 @@ def main() -> int:
                           ("ntt_kernels", ("ntt_phase1_kernel", "ntt_stage_kernel")),
                           ("transcript_kernels", ("keccak_f_kernel", "round_step_kernel")),
                           ("msm_kernels", tuple(f"{name}_kernel" for name in SCAN_PASSES)
-                           + ("compact_add_kernel", "horner_kernel", "fq_mul_coop_kernel"))):
+                           + ("compact_add_kernel", "horner_kernel", "fq_mul_coop_kernel")),
+                          ("gkr_phase_kernels", ("gkr_big_round_kernel", "gkr_phase_tail_kernel"))):
         for needle in needles:
             for line in resource_usage(_build.build_log[stem], needle):
                 say(f"    {line}")
@@ -2981,10 +3193,17 @@ def main() -> int:
     msm_errs, msm_times = phase_msm_kernels(gctx, inputs, taus)
     errs.update(msm_errs)
 
+    say("[19] the fused GKR phase kernels, gkr_big_round and gkr_phase_tail, against their "
+        "plain PyTorch versions (exact), and their times beside the parent's launches")
+    phase_errs, phase_times = phase_gkr_phase_kernels(gctx)
+    errs.update(phase_errs)
+
     kernels = []
     for name in (fk.KERNEL_NAMES + pk.KERNEL_NAMES + nk.KERNEL_NAMES + tk.KERNEL_NAMES
-                 + mk.KERNEL_NAMES):
-        if name in pk.KERNEL_NAMES:
+                 + mk.KERNEL_NAMES + gk.KERNEL_NAMES):
+        if name in gk.KERNEL_NAMES:
+            rec, source = phase_times[name], GKR_PHASE_KERNEL_SOURCE
+        elif name in pk.KERNEL_NAMES:
             rec, source = point_times[1 << GKR_NUM_VARS][name], POINT_KERNEL_SOURCE
         elif name in nk.KERNEL_NAMES:
             rec, source = ntt_times[NTT_LOG_SIZES[0]][name], NTT_KERNEL_SOURCE

@@ -14,7 +14,18 @@ all five). It prints, on lines that start with TAG:
     stack): the device microseconds of one call by ``torch.profiler``, the
     kernel and its ``finish_rows`` pass apart (at real widths most calls are
     small, where a launch's latency is its time and CUDA events would time the
-    host); the rows are held against the plain version up to 2^16;
+    host); the rows are held against the plain version up to 2^16. Then a
+    whole fused GKR phase (``fused_lazy._device_phase``, what the tree
+    launches for it) at every size from 2 to 2^20: ms by CUDA events (median of
+    20, warm) and its device kernels by the profiler; one round of the launches
+    a round took before the phase kernels (``fold``, ``gkr_round`` with its
+    ``finish_rows``, ``round_step``) at 2^15 to 2^20 by CUDA events, L2
+    flushed; and, in a tree with ``zktpu_torch.gkr.kernels``, ``gkr_big_round``
+    at the same sizes by CUDA events and device microseconds, and
+    ``gkr_phase_tail`` after a fold from 2^15 and from a phase's first round at
+    2^14, 2^10 and 2 by CUDA events and device microseconds, and a whole phase
+    at 2^14 to 2^20 under each ``fused_lazy.TAIL_MAX`` of ``TAIL_MAX_CHOICES``
+    with the sum over a 2^20-input walk's 40 phases (two a size, 2 to 2^20);
   * ``ntt``: ``ntt_phase1`` at a 1024-entry tile on 2^20 and 2^22 BN254 Fr
     entries, and ``point_add`` / ``point_double`` on 2^20 lanes: median
     milliseconds of 20 launches by CUDA events, L2 flushed before each;
@@ -58,6 +69,8 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+import importlib.util  # noqa: E402
+
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
@@ -67,7 +80,11 @@ from zktpu_torch.curve import point_kernels as pk  # noqa: E402
 from zktpu_torch.field import kernels as fk  # noqa: E402
 from zktpu_torch.field import torch_backend as fb  # noqa: E402
 from zktpu_torch.field.spec import BLS12_381_FQ, BLS12_381_FR, BN254_FQ, BN254_FR  # noqa: E402
+from zktpu_torch.gkr import fused_lazy  # noqa: E402
+from zktpu_torch.hash import keccak_device as kd  # noqa: E402
 from zktpu_torch.hash import kernels as tk  # noqa: E402
+from zktpu_torch.transcript import Transcript  # noqa: E402
+from zktpu_torch.utils.roofline import time_events  # noqa: E402
 from zktpu_torch.msm import kernels as mk  # noqa: E402
 from zktpu_torch.msm import pippenger as pp  # noqa: E402
 from zktpu_torch.ntt import ntt_kernels as nk  # noqa: E402
@@ -75,6 +92,8 @@ from zktpu_torch.pcs.kzg import KZG  # noqa: E402
 from zktpu_torch.poly.multilinear import MultilinearPoly  # noqa: E402
 
 RUNS = 20
+#: the thresholds a whole fused GKR phase is timed under (``gkr`` part)
+TAIL_MAX_CHOICES = tuple(1 << k for k in range(13, 19))
 PARTS = ("gkr", "ntt", "sums", "msm", "transcript")
 #: round_step's shapes on the paths: (label, field, rows, pending tail lanes or
 #: None for a steady round)
@@ -138,6 +157,96 @@ def gkr_round_sizes(tag: str) -> None:
         line.append(f"2^{k} {kernel:.2f}+{finish:.2f}")
         del stack
     print(f"{tag} gkr_round us (kernel+finish_rows): " + ", ".join(line), flush=True)
+    gkr_phase_sizes(tag)
+
+
+def device_kernels(fn) -> int:
+    """Device kernels ``fn`` runs, by the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.device_type().name == "CUDA" for e in prof.profiler.kineto_results.events())
+
+
+def gkr_phase_sizes(tag: str) -> None:
+    """A fused GKR phase at every size, one round of the launches a round took
+    before the phase kernels, and the phase kernels where the tree has them
+    (see the module's docstring)."""
+    ctx = fb.get_ctx(BLS12_381_FR)
+    rng = np.random.default_rng(1)
+    transcript = Transcript(ctx.spec)
+    transcript.append_field_elements([1, 2])
+    pairs, tail = transcript.sponge().state_lanes()
+    consts = fused_lazy._PhaseConsts(ctx, kd.pairs_to_lanes(pairs), kd.bytes_to_lanes(tail))
+    line = []
+    for k in range(1, 21):
+        stack = cs.random_table(ctx, rng, 2, 2, 1 << k)
+        ms = time_events(lambda: fused_lazy._device_phase(ctx, stack, consts), RUNS)
+        n = device_kernels(lambda: fused_lazy._device_phase(ctx, stack, consts))
+        line.append(f"2^{k} {ms:.4f} ms / {n}")
+    print(f"{tag} a fused GKR phase, ms (CUDA events, warm) / device kernels: " + ", ".join(line),
+          flush=True)
+    flush = torch.empty(256 << 20, dtype=torch.int8, device="cuda")
+    state = cs.random_lanes(rng, 25, ctx.device)
+    r = cs.random_table(ctx, rng)
+    has_kernels = importlib.util.find_spec("zktpu_torch.gkr.kernels") is not None
+    if has_kernels:
+        from zktpu_torch.gkr import kernels as gk
+    line = []
+    for k in range(15, 21):
+        stack = cs.random_table(ctx, rng, 2, 2, 1 << k)
+
+        def chain():
+            return tk.round_step(ctx, fk.gkr_round(ctx, fk.fold(ctx, stack, r)), state)
+
+        item = f"2^{k} chain {time_events(chain, RUNS, flush):.4f} ms"
+        if has_kernels:
+            ms = time_events(lambda: gk.gkr_big_round(ctx, stack, r, state), RUNS, flush)
+            us = cs.device_ms(lambda: gk.gkr_big_round(ctx, stack, r, state), "gkr_big_round",
+                              50) * 1e3
+            item += f", gkr_big_round {ms:.4f} ms, device {us:.2f} us"
+        line.append(item)
+    print(f"{tag} a steady round at 2^15-2^20 (CUDA events, L2 flushed): " + "; ".join(line),
+          flush=True)
+    if has_kernels:
+        line = []
+        tail_lanes = cs.random_lanes(rng, 8, ctx.device)
+        for k, first in ((15, False), (14, True), (10, True), (1, True)):
+            stack = cs.random_table(ctx, rng, 2, 2, 1 << k)
+            args = (None, state, tail_lanes) if first else (r, state, None)
+            ms = time_events(lambda: gk.gkr_phase_tail(ctx, stack, *args), RUNS)
+            us = cs.device_ms(lambda: gk.gkr_phase_tail(ctx, stack, *args), "gkr_phase_tail",
+                              50) * 1e3
+            line.append(f"2^{k} {'first' if first else 'after a fold'} {ms:.4f} ms, device "
+                        f"{us:.2f} us ({gk.tail_rounds(1 << k, not first)} rounds)")
+        print(f"{tag} gkr_phase_tail (CUDA events, warm): " + "; ".join(line), flush=True)
+        phase_tail_max(tag, ctx, rng, consts)
+
+
+def phase_tail_max(tag: str, ctx, rng, consts) -> None:
+    """A whole fused GKR phase at 2^14 to 2^20 under each TAIL_MAX_CHOICES
+    threshold (ms by CUDA events, median of 20, warm), and the walk's 40
+    phases summed (sizes below 2^14 run one tail under every threshold: timed
+    once)."""
+    stacks = {k: cs.random_table(ctx, rng, 2, 2, 1 << k) for k in range(1, 21)}
+
+    def phase_ms(k):
+        return time_events(lambda: fused_lazy._device_phase(ctx, stacks[k], consts), RUNS)
+
+    small = sum(phase_ms(k) for k in range(1, 14))
+    kept = fused_lazy.TAIL_MAX
+    try:
+        for tail_max in TAIL_MAX_CHOICES:
+            fused_lazy.TAIL_MAX = tail_max
+            row = {k: phase_ms(k) for k in range(14, 21)}
+            print(f"{tag} a fused GKR phase with TAIL_MAX 2^{tail_max.bit_length() - 1}, ms: "
+                  + ", ".join(f"2^{k} {ms:.4f}" for k, ms in row.items())
+                  + f"; the walk's 40 phases {2 * (small + sum(row.values())):.3f} ms", flush=True)
+    finally:
+        fused_lazy.TAIL_MAX = kept
 
 
 def sums_sizes(tag: str) -> None:
@@ -341,8 +450,7 @@ def main() -> int:
               f"PART in {PARTS}", file=sys.stderr)
         return 1
     tag = sys.argv[1]
-    _build.build_cuda_libraries(["sumcheck_kernels", "point_kernels", "ntt_kernels",
-                                 "msm_kernels", "transcript_kernels"])
+    _build.build_cuda_libraries(list(cs.CUDA_STEMS))
     fk.library()
     nk.library()
     pk.library()
@@ -357,8 +465,11 @@ def main() -> int:
                          ("msm_kernels", "compact_add_kernel"),
                          ("msm_kernels", "horner_kernel"),
                          ("transcript_kernels", "round_step_kernel"),
-                         ("transcript_kernels", "keccak_f_kernel")):
-        usage += cs.resource_usage(_build.build_log[stem], needle)
+                         ("transcript_kernels", "keccak_f_kernel"),
+                         ("gkr_phase_kernels", "gkr_big_round_kernel"),
+                         ("gkr_phase_kernels", "gkr_phase_tail_kernel")):
+        if stem in cs.CUDA_STEMS:
+            usage += cs.resource_usage(_build.build_log[stem], needle)
     print(f"{tag} " + " | ".join(usage), flush=True)
     for part, fn in (("gkr", gkr_round_sizes), ("ntt", ntt_and_points), ("sums", sums_sizes),
                      ("msm", msm_kernels), ("transcript", transcript_kernels)):

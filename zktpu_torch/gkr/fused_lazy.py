@@ -9,24 +9,26 @@ queues every round, and fetches the phase's coefficient rows once:
   * the phase's composed tables live as one contiguous (2, 2, size, W) product
     stack: [[F, G], [H, 1]] for phase 1 and the ``_phase2_tables_kernel`` layout
     for phase 2;
-  * per round: the ``gkr_round`` kernel gives y_0, y_1, y_2 as exact lazy rows;
-    one ``round_step`` launch (``hash.kernels``) takes them to canonical
-    coefficients (c0 = y0, c2 = (y0 - 2 y1 + y2)/2, c1 = y1 - y0 - c2), absorbs
-    digest || the trimmed coefficients and gives the next challenge; the
-    ``fold`` kernel folds the whole stack at that challenge, which never visits
-    the host.
+  * a round folds the stack at the last round's challenge, sums the folded
+    stack's three lazy rows y_0, y_1, y_2, takes them to canonical coefficients
+    (c0 = y0, c2 = (y0 - 2 y1 + y2)/2, c1 = y1 - y0 - c2), absorbs digest || the
+    trimmed coefficients and gives the next challenge, which never visits the
+    host (``gkr.kernels``);
+  * as the reference does, a phase runs one ``gkr_big_round`` launch for each
+    round whose table is above ``TAIL_MAX`` entries, then one
+    ``gkr_phase_tail`` launch for all the remaining rounds and the last fold.
 
-Every round goes through the same three kernels, whatever the table's size. The
-reference switches, at and below 2^14 entries, to a bit-reversed zero-padded
-fixed-shape scan (``_scan_phase_fixed``, ``_bitrev_pad``, ``_big_round``,
-``SCAN_SIZE``); that exists only to cap the number of per-shape compilations of
-its tracing compiler and has no counterpart here: this package runs eagerly and
-its kernels take every power-of-two size from 2.
+The reference's tail (``_scan_phase_fixed``) runs on a bit-reversed, zero-padded
+stack of a fixed shape (``_bitrev_pad``, ``SCAN_SIZE``), which caps the
+per-shape compilations of its tracing compiler; that has no counterpart here:
+``gkr_phase_tail`` takes every power-of-two size from 2 as it is, in one
+launch. ``TAIL_MAX`` is the port's own threshold, the table size up to which
+one tail launch beats a launch a round on the card.
 
 Transcript bytes are identical to the host path INCLUDING the trim: the
 reference absorbs ``interpolate``'s trailing-zero-trimmed coefficient vector,
 and a vanishing quadratic coefficient is structural for some layers (all-ADD
-wiring), not rare. ``round_step`` finds the trimmed length on the card, so no
+wiring), not rare. Each round finds the trimmed length on the card, so no
 round asks the host anything; in the first round of a phase, which also absorbs
 the host transcript's pending tail, that length decides whether the content
 takes one block or two.
@@ -41,17 +43,24 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..field import kernels as fk
 from ..field.torch_backend import FieldCtx
 from ..hash import keccak_device as kd
 from ..hash import kernels as tk
 from ..poly.univariate import UnivariatePoly
 from ..sumcheck.protocol import GkrSumcheckProof, _encode
 from ..transcript import Transcript
+from . import kernels as gk
 from . import lazy as lazy_mod
 
 #: coefficients of a round polynomial before the trim
 NUM_COEFFS = 3
+#: rounds whose table is above this many entries take a ``gkr_big_round``
+#: launch each; the rest of the phase takes one ``gkr_phase_tail`` launch. On
+#: an H100 a whole phase took least time with the largest threshold timed,
+#: 2^18 (from 2^13: ``scripts/time_kernels.py``'s ``gkr`` part). A module
+#: attribute, read at call time (tests force it down to run both kernels on a
+#: small circuit); at least 2.
+TAIL_MAX = 1 << 18
 
 
 class _PhaseConsts:
@@ -69,21 +78,27 @@ class _PhaseConsts:
 
 def _device_phase(ctx: FieldCtx, tables, consts: _PhaseConsts):
     """All rounds of one phase on the device, nothing fetched and nothing
-    uploaded: ``consts`` holds every upload. A round is ``gkr_round`` (and its
-    ``finish_rows``), ``round_step`` (coefficients into the round's slot, the
-    absorb, the next challenge) and ``fold``.
+    uploaded: ``consts`` holds every upload. A round above ``TAIL_MAX``
+    entries is one ``gkr_big_round`` launch (its fold at the last round's
+    challenge, its sums, its coefficients into the round's slot, the absorb,
+    the next challenge); the rest of the phase is one ``gkr_phase_tail``.
 
     Returns ((nb, 3, W) canonical coefficient rows, (W,) the folded [0, 0]
     table's one entry -- w(r_b) after phase 1).
     """
+    if TAIL_MAX < 2:
+        raise ValueError(f"TAIL_MAX is {TAIL_MAX}: a phase tail takes at least one round")
     nb = tables.shape[2].bit_length() - 1
     out = torch.empty((nb, NUM_COEFFS, ctx.num_words), dtype=torch.int32, device=ctx.device)
-    state = consts.state
-    for k in range(nb):
-        rows = fk.gkr_round(ctx, tables)
-        _, state, r_mont = tk.round_step(ctx, rows, state, consts.tail if k == 0 else None, out[k])
-        tables = fk.fold(ctx, tables, r_mont)
-    return out, tables[0, 0, 0]
+    state, tail, r = consts.state, consts.tail, None
+    k = 0
+    # round k sums a table of tables.shape[2] entries, halved first if it folds
+    while tables.shape[2] >> (r is not None) > TAIL_MAX:
+        tables, _, state, r = gk.gkr_big_round(ctx, tables, r, state,
+                                               tail if k == 0 else None, out[k])
+        k += 1
+    _, wb, _ = gk.gkr_phase_tail(ctx, tables, r, state, tail if k == 0 else None, out[k:])
+    return out, wb
 
 
 def _run_phase(ctx: FieldCtx, transcript: Transcript, tables):

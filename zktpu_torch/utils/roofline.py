@@ -4,7 +4,7 @@ The counterpart of the JAX package's ``utils/roofline.py``, for the card:
 
   * ``PEAKS`` / ``chip_peaks``: the card's memory rate and 32-bit integer
     multiply-add rate, by ``torch.cuda.get_device_name``;
-  * cost models of the fourteen kernels: (bytes moved, 32-bit multiply-adds,
+  * cost models of the sixteen kernels: (bytes moved, 32-bit multiply-adds,
     or for Keccak 32-bit logical instructions and funnel shifts) of one call,
     each input read once and each output written once; ``one_thread_ms``, the
     least time of a one-thread kernel's operations (its warp issues one
@@ -250,6 +250,65 @@ def round_step_cost(k: int, prefix_lanes: int = 4, blocks: int | None = None,
     return nbytes, products * cios_lane_ops(w) + blocks * KECCAK_F_OPS
 
 
+def gkr_step_cost(size: int, fold: bool):
+    """The fused step of a GKR round on a (2, 2, size, W) stack at W = 8: with
+    a fold, the stack read and its half written, a product for each of the
+    4 size/2 folded entries and six, with three terms' additions, for each of
+    the size/4 indices of the folded stack's sums; without, ``gkr_round``'s
+    reads and products. Its lazy rows stay on the chip."""
+    elem = elem_bytes(8)
+    if not fold:
+        return 4 * size * elem, size // 2 * (6 * cios_lane_ops(8) + 3 * 2 * 8)
+    return (4 * size * elem + 2 * size * elem + elem,
+            2 * size * cios_lane_ops(8) + size // 4 * (6 * cios_lane_ops(8) + 3 * 2 * 8))
+
+
+def gkr_big_round_cost(size: int, fold: bool):
+    """One ``gkr_big_round``: its fused step and the round's ``round_step``
+    (a phase's first round priced with no pending tail and one block, the
+    least it needs)."""
+    step = gkr_step_cost(size, fold)
+    rnd = round_step_cost(3, 4 if fold else 0, first=not fold)
+    return step[0] + rnd[0], step[1] + rnd[1]
+
+
+def gkr_tail_sizes(size: int, fold: bool) -> list[tuple[int, bool]]:
+    """(stack entries, folds) of each round of a ``gkr_phase_tail`` given a
+    stack of ``size`` entries: until the summed table has two entries."""
+    rounds = []
+    while size > (2 if fold else 1) * 2:
+        rounds.append((size, fold))
+        size = size // 2 if fold else size
+        fold = True
+    return rounds + [(size, fold)]
+
+
+def gkr_phase_tail_cost(size: int, fold: bool):
+    """One ``gkr_phase_tail``: the stack read once and each round's
+    coefficients, state and challenge written once, w(r_b) written (its folds
+    stay in a work buffer, which the function need not move); the products
+    of every round's fused step and ``round_step`` and of the last fold."""
+    steps = gkr_tail_sizes(size, fold)
+    elem = elem_bytes(8)
+    nbytes = 4 * size * elem + len(steps) * (3 * elem + _STATE_BYTES + elem) + elem
+    ops = cios_lane_ops(8)
+    for k, (n, f) in enumerate(steps):
+        ops += gkr_step_cost(n, f)[1] + round_step_cost(3, 4 if f else 0, first=k == 0
+                                                        and not fold)[1]
+    return nbytes, ops
+
+
+#: the two fused GKR phase kernels by name: (stack entries, folds first) -> cost
+GKR_PHASE_COSTS = {"gkr_big_round": gkr_big_round_cost, "gkr_phase_tail": gkr_phase_tail_cost}
+
+
+def gkr_phase_floor_ms(name: str, size: int, fold: bool) -> float:
+    """The one-warp floor that a launch adds to its bound: each of its rounds'
+    ``round_step`` chain (``one_thread_ms``), which no other block shares."""
+    rounds = len(gkr_tail_sizes(size, fold)) if name == "gkr_phase_tail" else 1
+    return rounds * one_thread_ms(round_step_cost(3)[1])
+
+
 def one_thread_ms(ops: float) -> float:
     """The least time of ``ops`` 32-bit operations on ONE thread: its warp
     issues at most one instruction a cycle. This, not ``bound`` (the whole
@@ -298,7 +357,7 @@ def horner_cost(segments: int, windows: int, c: int):
 
 def lanes_bound_ms(name: str, lanes: int, doublings: int, peaks: Peaks | None = None,
                    rounds: dict | None = None, scan_slots: int = 0,
-                   chains: dict | None = None) -> float:
+                   chains: dict | None = None, phase_calls: dict | None = None) -> float:
     """The least time of ``lanes`` lanes of a kernel, as in its row's bound:
     the five field kernels at W = 8 (a path's few 12-word ``mont_mul`` lanes
     priced so too), ``point_add`` on finite lanes, ``point_double``'s bytes by
@@ -308,7 +367,9 @@ def lanes_bound_ms(name: str, lanes: int, doublings: int, peaks: Peaks | None = 
     first round), each round at its own cost; ``run_scan`` by keys and
     ``scan_slots``, ``compact_add`` by slots, each a survivor, its additions
     not priced (which slots add is on the card), ``horner`` by ``chains``
-    (``msm.kernels.chains``: segments by windows and c)."""
+    (``msm.kernels.chains``: segments by windows and c), the two fused GKR
+    phase kernels by rounds and ``phase_calls`` (``gkr.kernels.calls``:
+    launches by kernel, stack entries and first fold), each at its own cost."""
     if lanes == 0:
         return 0.0
     if name == "run_scan":
@@ -319,6 +380,16 @@ def lanes_bound_ms(name: str, lanes: int, doublings: int, peaks: Peaks | None = 
         if chains is None or sum(chains.values()) != lanes:
             raise ValueError(f"horner: {lanes} segments, priced by kind {chains}")
         costs = [horner_cost(s, w, c) for (w, c), s in chains.items()]
+        nbytes, ops = (sum(c[i] for c in costs) for i in range(2))
+    elif name in GKR_PHASE_COSTS:
+        mine = {(size, fold): n for (kernel, size, fold), n in (phase_calls or {}).items()
+                if kernel == name}
+        rounds = sum(n * (len(gkr_tail_sizes(size, fold)) if name == "gkr_phase_tail" else 1)
+                     for (size, fold), n in mine.items())
+        if rounds != lanes:
+            raise ValueError(f"{name}: {lanes} rounds, priced by launch {phase_calls}")
+        costs = [[n * v for v in GKR_PHASE_COSTS[name](size, fold)]
+                 for (size, fold), n in mine.items()]
         nbytes, ops = (sum(c[i] for c in costs) for i in range(2))
     elif name == "keccak_f":
         nbytes, ops = keccak_f_cost(lanes)
