@@ -148,10 +148,15 @@ them), or the script fails. Last,
      tables whose rounds trim to 0-3 coefficients, and three rounds back to
      back at 2^20 / 2^15 / 2^20; ``gkr_phase_tail`` from every size 2 to
      ``TAIL_MAX``, from a phase's first round and after a pending fold, pending
-     tails of one and two blocks, word for word; then each one's time (CUDA
-     events; device us by the profiler's clock) beside the parent's launches
-     for the same work (``fold``, ``gkr_round`` with its ``finish_rows``,
-     ``round_step``, a round), its plain version and its bound.
+     tails of one and two blocks, at ``gkr.kernels.BLOCK_MAX`` (grid rounds,
+     then block rounds) and, up to 2^12 entries, at four forced ones (grid
+     rounds only, and the switch at 2^2, 2^9 and 2^10), word for word; then
+     each one's time (CUDA events; device us a launch and a round by the
+     profiler's clock; the tail after a fold from twice ``TAIL_MAX`` and from
+     2^19 and from a first round at ``TAIL_MAX``, 2^18, 2^14, 2^11, 2^10, 2^6
+     and 2) beside the parent's launches for the same work (``fold``,
+     ``gkr_round`` with its ``finish_rows``, ``round_step``, a round), its
+     plain version and its bound.
 
 The bounds are ``zktpu_torch/utils/roofline.py``'s, at the peaks it lists for
 the card (it raises on a card it does not list). Any failed comparison exits
@@ -383,7 +388,8 @@ def gkr_expected_launches(n: int) -> dict[str, int]:
     (j = 1..n) runs 2j rounds, j a phase.
 
     gkr_big_round: one a round whose table is above ``fused_lazy.TAIL_MAX``
-    entries (6 at 2^18, 42 at 2^14); gkr_phase_tail: one a phase, 2n; the rounds' sums,
+    entries (20 at 2^16, 6 at 2^18, 42 at 2^14); gkr_phase_tail: one a phase, 2n; the
+    rounds' sums,
     folds, canonical form, interpolation, absorb and challenge are theirs, so
     the walk's sumcheck rounds launch no gkr_round, round_step, fold, mont_mul
     or keccak_f.
@@ -2402,13 +2408,18 @@ def device_ms(fn, kernel: str, runs: int = TRANSCRIPT_TIMED_RUNS) -> float:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(runs):
-            fn()
-        torch.cuda.synchronize()
-    durations = [e.duration_ns() for e in prof.profiler.kineto_results.events()
-                 if e.device_type().name == "CUDA" and f"{kernel}_kernel" in e.name()]
-    # late in a long process the tracer may drop a few of a burst's records
+    # late in a long process the tracer may drop a burst's records: the
+    # profile is taken again, up to PROFILE_TRIES times, while it holds fewer
+    # than half of them
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                fn()
+            torch.cuda.synchronize()
+        durations = [e.duration_ns() for e in prof.profiler.kineto_results.events()
+                     if e.device_type().name == "CUDA" and f"{kernel}_kernel" in e.name()]
+        if runs // 2 <= len(durations):
+            break
     check(runs // 2 <= len(durations) <= runs,
           f"{kernel}: {len(durations)} device kernels traced for {runs} calls")
     return statistics.median(durations) / 1e6
@@ -2886,6 +2897,16 @@ PHASE_TAIL_LANES = (8, 16)
 #: sizes at which gkr_phase_tail is checked at every trim, the others taking
 #: one trim each in turn
 TAIL_ALL_TRIMS_LOGS = (1, 2, 3)
+#: gkr_phase_tail is also held at these forced ``gk.BLOCK_MAX`` on stacks of up
+#: to 2^TAIL_FORCED_LOG entries: grid rounds only (1), and the switch from grid
+#: rounds (of several blocks, whose number shrinks) to block rounds at other
+#: sizes
+TAIL_FORCED_BLOCK_MAX = (1, 4, 1 << 9, 1 << 10)
+TAIL_FORCED_LOG = 12
+#: gkr_phase_tail is timed after a fold from twice ``TAIL_MAX`` (the main
+#: path's widest tail, the kernels line's figure) and from 2^19, and from a
+#: phase's first round at ``TAIL_MAX`` and at these sizes
+TAIL_TIME_LOGS = (18, 14, 11, 10, 6, 1)
 
 
 def phase_stack(ctx, rng, size: int, trim: int):
@@ -2948,8 +2969,9 @@ def phase_gkr_phase_kernels(gctx) -> tuple[dict[str, int], dict[str, dict]]:
     errs = {name: 0 for name in gk.KERNEL_NAMES}
     lib = gk.library()
     say(f"  gkr_phase_tail's grid: at most {gk._resident(lib, gctx.device)} blocks "
-        f"(resident, cooperative), gkr_big_round's at most {gk.MAX_BIG_BLOCKS}; TAIL_MAX "
-        f"{fused_lazy.TAIL_MAX}")
+        f"(resident, cooperative), one where its first round sums at most BLOCK_MAX "
+        f"{gk.BLOCK_MAX} entries a table; gkr_big_round's at most {gk.MAX_BIG_BLOCKS}; "
+        f"TAIL_MAX {fused_lazy.TAIL_MAX}")
     checked = 0
     for log in BIG_ROUND_LOGS:
         for trim in range(4):
@@ -2975,7 +2997,7 @@ def phase_gkr_phase_kernels(gctx) -> tuple[dict[str, int], dict[str, dict]]:
         f"entries (first and steady, trims 0-3) and 3 back to back at 2^20 / 2^15 / 2^20: max "
         f"error {errs['gkr_big_round']}")
     tail_max_log = fused_lazy.TAIL_MAX.bit_length() - 1
-    checked = 0
+    checked = forced = 0
     for log in range(1, tail_max_log + 1):
         all_trims = log in TAIL_ALL_TRIMS_LOGS
         for first in (True, False):
@@ -2994,9 +3016,24 @@ def phase_gkr_phase_kernels(gctx) -> tuple[dict[str, int], dict[str, dict]]:
                       f"the tables of trim {trim} at 2^{log} trim otherwise")
                 errs["gkr_phase_tail"] = max(errs["gkr_phase_tail"], err)
                 checked += 1
+                if log > TAIL_FORCED_LOG or trim != trims[-1]:
+                    continue
+                kept = gk.BLOCK_MAX
+                try:
+                    for block_max in TAIL_FORCED_BLOCK_MAX:
+                        gk.BLOCK_MAX = block_max
+                        err = phase_err(gk.gkr_phase_tail(gctx, *args), want)
+                        check(err == 0, f"gkr_phase_tail differs from its plain version at "
+                              f"2^{log}, {'first' if first else 'after a fold'}, BLOCK_MAX "
+                              f"{block_max}")
+                        errs["gkr_phase_tail"] = max(errs["gkr_phase_tail"], err)
+                        forced += 1
+                finally:
+                    gk.BLOCK_MAX = kept
     say(f"  gkr_phase_tail: {checked} tails from every size 2-2^{tail_max_log}, first and after "
-        f"a fold, trims 0-3, pending tails of {PHASE_TAIL_LANES} lanes: max error "
-        f"{errs['gkr_phase_tail']}")
+        f"a fold, trims 0-3, pending tails of {PHASE_TAIL_LANES} lanes, BLOCK_MAX "
+        f"{gk.BLOCK_MAX}; {forced} more up to 2^{TAIL_FORCED_LOG} at BLOCK_MAX "
+        f"{TAIL_FORCED_BLOCK_MAX}: max error {errs['gkr_phase_tail']}")
 
     flush = torch.empty(256 << 20, dtype=torch.int8, device=gctx.device)
     times = {}
@@ -3017,8 +3054,9 @@ def phase_gkr_phase_kernels(gctx) -> tuple[dict[str, int], dict[str, dict]]:
             if log == BIG_ROUND_LOGS[-1] and not first:
                 times["gkr_big_round"] = {"ms": ms, "plain_ms": plain, "bound_ms": b.ms,
                                           "bound_by": b.by}
-    for log, first in [(tail_max_log + 1, False)] + [(k, True) for k in (tail_max_log, 14, 10, 6,
-                                                                          1)]:
+    timed = [(tail_max_log + 1, False), (19, False)] + [
+        (k, True) for k in sorted({tail_max_log, *TAIL_TIME_LOGS}, reverse=True)]
+    for log, first in sorted(set(timed), key=timed.index):
         args = phase_round_inputs(gctx, rng, 1 << log, 3, first, 8)
         ms = time_events(lambda: gk.gkr_phase_tail(gctx, *args), TIMED_RUNS)
         dev_us = device_ms(lambda: gk.gkr_phase_tail(gctx, *args), "gkr_phase_tail", 50) * 1e3
@@ -3032,7 +3070,7 @@ def phase_gkr_phase_kernels(gctx) -> tuple[dict[str, int], dict[str, dict]]:
             f"({dev_us / rounds:.2f} a round); the parent's {4 * rounds + 1} launches "
             f"{parent:.4f} ms; plain {plain:.1f} ms; bound {b.ms * 1e3:.4f} us by {b.by} (+ "
             f"round_step's one-warp floors {floor * 1e3:.3f} us: {(b.ms + floor) / ms:.1%} of it)")
-        if not first:
+        if (log, first) == (tail_max_log + 1, False):
             times["gkr_phase_tail"] = {"ms": ms, "plain_ms": plain, "bound_ms": b.ms,
                                        "bound_by": b.by}
     del flush

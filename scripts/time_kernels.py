@@ -5,8 +5,8 @@ Run on a machine with one CUDA device, from the root of a tree of the repo:
 
     python3 scripts/time_kernels.py TAG [PART ...]
 
-PART is one of ``gkr``, ``ntt``, ``sums``, ``msm``, ``transcript`` (default:
-all five). It prints, on lines that start with TAG:
+PART is one of ``gkr``, ``tail``, ``ntt``, ``sums``, ``msm``, ``transcript``
+(default: all six). It prints, on lines that start with TAG:
 
   * the registers ``nvcc`` gave ``ntt_phase1``, ``gkr_round``, ``halves_sums``,
     ``fold_and_halves``, the MSM kernels and the transcript kernels;
@@ -21,11 +21,20 @@ all five). It prints, on lines that start with TAG:
     a round took before the phase kernels (``fold``, ``gkr_round`` with its
     ``finish_rows``, ``round_step``) at 2^15 to 2^20 by CUDA events, L2
     flushed; and, in a tree with ``zktpu_torch.gkr.kernels``, ``gkr_big_round``
-    at the same sizes by CUDA events and device microseconds, and
-    ``gkr_phase_tail`` after a fold from 2^15 and from a phase's first round at
-    2^14, 2^10 and 2 by CUDA events and device microseconds, and a whole phase
-    at 2^14 to 2^20 under each ``fused_lazy.TAIL_MAX`` of ``TAIL_MAX_CHOICES``
-    with the sum over a 2^20-input walk's 40 phases (two a size, 2 to 2^20);
+    at the same sizes by CUDA events and device microseconds;
+  * ``tail`` (a tree with ``zktpu_torch.gkr.kernels``): ``gkr_phase_tail``
+    after a fold from 2^19 and from a phase's first round at 2^18, 2^14, 2^11,
+    2^10, 2^6 and 2 (``TAIL_SIZES``), by CUDA events (median of 20, warm) and
+    device microseconds a launch and a round by the profiler (median of 50),
+    held against its plain version up to 2^11 first; then a 2^20-input walk's
+    40 phases (two a size, 2 to 2^20; ``fused_lazy._device_phase``, ms by CUDA
+    events, summed, and the device ms of their phase kernels by the
+    profiler). Where the tree has ``gkr.kernels.BLOCK_MAX``, both under
+    each of ``BLOCK_MAX_CHOICES``. Then a whole phase at 2^15 to 2^20 under
+    each ``fused_lazy.TAIL_MAX`` of ``TAIL_MAX_CHOICES``, with the walk's 40
+    phases summed; last, the device milliseconds of each phase kernel in one
+    ``prove_layers`` of ``chip_smoke.py``'s 2^20-input circuit by the
+    profiler (phase 14's figure for the layer walk);
   * ``ntt``: ``ntt_phase1`` at a 1024-entry tile on 2^20 and 2^22 BN254 Fr
     entries, and ``point_add`` / ``point_double`` on 2^20 lanes: median
     milliseconds of 20 launches by CUDA events, L2 flushed before each;
@@ -81,6 +90,8 @@ from zktpu_torch.field import kernels as fk  # noqa: E402
 from zktpu_torch.field import torch_backend as fb  # noqa: E402
 from zktpu_torch.field.spec import BLS12_381_FQ, BLS12_381_FR, BN254_FQ, BN254_FR  # noqa: E402
 from zktpu_torch.gkr import fused_lazy  # noqa: E402
+from zktpu_torch.gkr import protocol as gkr  # noqa: E402
+from zktpu_torch.gkr.circuit import Circuit  # noqa: E402
 from zktpu_torch.hash import keccak_device as kd  # noqa: E402
 from zktpu_torch.hash import kernels as tk  # noqa: E402
 from zktpu_torch.transcript import Transcript  # noqa: E402
@@ -92,9 +103,15 @@ from zktpu_torch.pcs.kzg import KZG  # noqa: E402
 from zktpu_torch.poly.multilinear import MultilinearPoly  # noqa: E402
 
 RUNS = 20
-#: the thresholds a whole fused GKR phase is timed under (``gkr`` part)
-TAIL_MAX_CHOICES = tuple(1 << k for k in range(13, 19))
-PARTS = ("gkr", "ntt", "sums", "msm", "transcript")
+#: the thresholds a whole fused GKR phase is timed under (``tail`` part)
+TAIL_MAX_CHOICES = tuple(1 << k for k in range(14, 21))
+#: the block rounds' thresholds a phase tail is timed under (``tail`` part)
+BLOCK_MAX_CHOICES = tuple(1 << k for k in range(5, 11))
+#: (log2 of the stack's entries, whether the tail's first round folds) of the
+#: tails timed alone (``tail`` part)
+TAIL_SIZES = ((19, True), (18, False), (14, False), (11, False), (10, False), (6, False),
+              (1, False))
+PARTS = ("gkr", "tail", "ntt", "sums", "msm", "transcript")
 #: round_step's shapes on the paths: (label, field, rows, pending tail lanes or
 #: None for a steady round)
 ROUND_SHAPES = (("steady GKR round", BLS12_381_FR, 3, None),
@@ -211,42 +228,161 @@ def gkr_phase_sizes(tag: str) -> None:
         line.append(item)
     print(f"{tag} a steady round at 2^15-2^20 (CUDA events, L2 flushed): " + "; ".join(line),
           flush=True)
-    if has_kernels:
-        line = []
-        tail_lanes = cs.random_lanes(rng, 8, ctx.device)
-        for k, first in ((15, False), (14, True), (10, True), (1, True)):
-            stack = cs.random_table(ctx, rng, 2, 2, 1 << k)
-            args = (None, state, tail_lanes) if first else (r, state, None)
-            ms = time_events(lambda: gk.gkr_phase_tail(ctx, stack, *args), RUNS)
-            us = cs.device_ms(lambda: gk.gkr_phase_tail(ctx, stack, *args), "gkr_phase_tail",
-                              50) * 1e3
-            line.append(f"2^{k} {'first' if first else 'after a fold'} {ms:.4f} ms, device "
-                        f"{us:.2f} us ({gk.tail_rounds(1 << k, not first)} rounds)")
-        print(f"{tag} gkr_phase_tail (CUDA events, warm): " + "; ".join(line), flush=True)
-        phase_tail_max(tag, ctx, rng, consts)
 
 
-def phase_tail_max(tag: str, ctx, rng, consts) -> None:
+def launch_us(fn, kernel: str, runs: int = 50) -> float:
+    """Median device microseconds of ``kernel``'s launches over ``runs`` calls
+    of ``fn``, by the profiler's clock; the profile is taken again (up to
+    chip_smoke's PROFILE_TRIES times) while the tracer has dropped more than
+    half of them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(cs.PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                fn()
+            torch.cuda.synchronize()
+        durations = [e.duration_ns() for e in prof.profiler.kineto_results.events()
+                     if e.device_type().name == "CUDA" and f"{kernel}_kernel" in e.name()]
+        if runs // 2 <= len(durations):
+            break
+    cs.check(runs // 2 <= len(durations) <= runs,
+             f"{kernel}: {len(durations)} device kernels traced for {runs} calls")
+    return statistics.median(durations) / 1e3
+
+
+def walk_ms(ctx, stacks, consts, sizes=range(1, 21)) -> tuple[float, float]:
+    """The 40 phases of a 2^20-input walk, two at each size 2 to 2^20 (or
+    those of ``sizes``): the sum of each phase's ms (CUDA events, median of
+    RUNS, warm), and the device ms of their phase kernels (by the profiler,
+    median of three passes whose every launch was traced)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from zktpu_torch.gkr import kernels as gk
+
+    events = 2 * sum(time_events(lambda: fused_lazy._device_phase(ctx, stacks[k], consts), RUNS)
+                     for k in sizes)
+    passes = []
+    for _ in range(3 * cs.PROFILE_TRIES):
+        torch.cuda.synchronize()
+        gk.reset_launches()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for k in sizes:
+                for _ in range(2):
+                    fused_lazy._device_phase(ctx, stacks[k], consts)
+            torch.cuda.synchronize()
+        traced = [e.duration_ns() for e in prof.profiler.kineto_results.events()
+                  if e.device_type().name == "CUDA"
+                  and ("gkr_phase_tail" in e.name() or "gkr_big_round" in e.name())]
+        if len(traced) == sum(gk.launches.values()):
+            passes.append(sum(traced))
+        if len(passes) == 3:
+            break
+    cs.check(passes, "the walk's phases: no profile traced every launch")
+    return events, statistics.median(passes) / 1e6
+
+
+def tail_part(tag: str) -> None:
+    """gkr_phase_tail alone and in the walk's phases under each threshold,
+    and the phase kernels' device ms in one layer walk (see the module's
+    docstring)."""
+    if importlib.util.find_spec("zktpu_torch.gkr.kernels") is None:
+        print(f"{tag} no gkr_phase_tail in this tree", flush=True)
+        return
+    from zktpu_torch.gkr import kernels as gk
+
+    ctx = fb.get_ctx(BLS12_381_FR)
+    rng = np.random.default_rng(2)
+    transcript = Transcript(ctx.spec)
+    transcript.append_field_elements([1, 2])
+    pairs, tail = transcript.sponge().state_lanes()
+    consts = fused_lazy._PhaseConsts(ctx, kd.pairs_to_lanes(pairs), kd.bytes_to_lanes(tail))
+    stacks = {k: cs.random_table(ctx, rng, 2, 2, 1 << k) for k in range(1, 21)}
+    state = cs.random_lanes(rng, 25, ctx.device)
+    r = cs.random_table(ctx, rng)
+    tail_lanes = cs.random_lanes(rng, 8, ctx.device)
+    tails = {k: stacks[k] if k in stacks else cs.random_table(ctx, rng, 2, 2, 1 << k)
+             for k, _ in TAIL_SIZES}
+    kept = getattr(gk, "BLOCK_MAX", None)
+    try:
+        for block_max in (BLOCK_MAX_CHOICES if kept is not None else (None,)):
+            if block_max is not None:
+                gk.BLOCK_MAX = block_max
+            line = []
+            for k, fold in TAIL_SIZES:
+                args = (r, state, None) if fold else (None, state, tail_lanes)
+                if k <= 11:
+                    got = gk.gkr_phase_tail(ctx, tails[k], *args)
+                    want = gk.gkr_phase_tail_plain(ctx, tails[k], *args)
+                    cs.check(cs.phase_err(got, want) == 0,
+                             f"gkr_phase_tail differs from its plain version at 2^{k}")
+                ms = time_events(lambda: gk.gkr_phase_tail(ctx, tails[k], *args), RUNS)
+                us = launch_us(lambda: gk.gkr_phase_tail(ctx, tails[k], *args), "gkr_phase_tail")
+                rounds = gk.tail_rounds(1 << k, fold)
+                line.append(f"2^{k} {'after a fold' if fold else 'first'} {ms:.4f} ms, device "
+                            f"{us:.2f} us ({us / rounds:.2f} a round of {rounds})")
+            label = "" if block_max is None else f" BLOCK_MAX 2^{block_max.bit_length() - 1}"
+            print(f"{tag} gkr_phase_tail{label} (CUDA events, warm; device us by the profiler): "
+                  + "; ".join(line), flush=True)
+            events, device = walk_ms(ctx, stacks, consts)
+            print(f"{tag} the walk's 40 phases{label}, TAIL_MAX 2^"
+                  f"{fused_lazy.TAIL_MAX.bit_length() - 1}: {events:.4f} ms (CUDA events), "
+                  f"device {device:.4f} ms", flush=True)
+    finally:
+        if kept is not None:
+            gk.BLOCK_MAX = kept
+    phase_tail_max(tag, ctx, stacks, consts)
+    walk_kernels(tag, ctx, gk)
+
+
+def phase_tail_max(tag: str, ctx, stacks, consts) -> None:
     """A whole fused GKR phase at 2^14 to 2^20 under each TAIL_MAX_CHOICES
     threshold (ms by CUDA events, median of 20, warm), and the walk's 40
-    phases summed (sizes below 2^14 run one tail under every threshold: timed
-    once)."""
-    stacks = {k: cs.random_table(ctx, rng, 2, 2, 1 << k) for k in range(1, 21)}
+    phases summed, by CUDA events and device ms (sizes below 2^14 run one tail
+    under every threshold: timed once)."""
 
     def phase_ms(k):
         return time_events(lambda: fused_lazy._device_phase(ctx, stacks[k], consts), RUNS)
 
-    small = sum(phase_ms(k) for k in range(1, 14))
+    small = walk_ms(ctx, stacks, consts, range(1, 14))
     kept = fused_lazy.TAIL_MAX
     try:
         for tail_max in TAIL_MAX_CHOICES:
             fused_lazy.TAIL_MAX = tail_max
             row = {k: phase_ms(k) for k in range(14, 21)}
+            large = walk_ms(ctx, stacks, consts, range(14, 21))
             print(f"{tag} a fused GKR phase with TAIL_MAX 2^{tail_max.bit_length() - 1}, ms: "
                   + ", ".join(f"2^{k} {ms:.4f}" for k, ms in row.items())
-                  + f"; the walk's 40 phases {2 * (small + sum(row.values())):.3f} ms", flush=True)
+                  + f"; the walk's 40 phases {small[0] + large[0]:.3f} ms (CUDA events), device "
+                  f"{small[1] + large[1]:.4f} ms", flush=True)
     finally:
         fused_lazy.TAIL_MAX = kept
+
+
+def walk_kernels(tag: str, ctx, gk) -> None:
+    """Device ms and launches of each phase kernel in one warm ``prove_layers``
+    of chip_smoke.py's 2^20-input circuit (the layer walk), by the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    structure, inputs = cs.gkr_benchmark(20)
+    circuit = Circuit(ctx, structure)
+    gkr.prove_layers(circuit, inputs)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        gkr.prove_layers(circuit, inputs)
+        torch.cuda.synchronize()
+    ms = {name: 0.0 for name in gk.KERNEL_NAMES}
+    n = {name: 0 for name in gk.KERNEL_NAMES}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type().name == "CUDA":
+            for name in gk.KERNEL_NAMES:
+                if f"{name}_kernel" in e.name():
+                    ms[name] += e.duration_ns() / 1e6
+                    n[name] += 1
+    print(f"{tag} one prove_layers at 2^20 inputs, device ms (kernels): "
+          + ", ".join(f"{name} {ms[name]:.4f} ({n[name]})" for name in gk.KERNEL_NAMES), flush=True)
 
 
 def sums_sizes(tag: str) -> None:
@@ -471,7 +607,8 @@ def main() -> int:
         if stem in cs.CUDA_STEMS:
             usage += cs.resource_usage(_build.build_log[stem], needle)
     print(f"{tag} " + " | ".join(usage), flush=True)
-    for part, fn in (("gkr", gkr_round_sizes), ("ntt", ntt_and_points), ("sums", sums_sizes),
+    for part, fn in (("gkr", gkr_round_sizes), ("tail", tail_part), ("ntt", ntt_and_points),
+                     ("sums", sums_sizes),
                      ("msm", msm_kernels), ("transcript", transcript_kernels)):
         if part in parts:
             fn(tag)

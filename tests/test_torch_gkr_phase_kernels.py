@@ -64,6 +64,8 @@ P = BLS12_381_FR.modulus
 W = gk.WORDS
 
 HARNESS = r"""
+#include <vector>
+
 #include "gkr_phase.cuh"
 
 namespace {
@@ -82,19 +84,46 @@ transcript::Consts make_consts(const uint32_t* p, uint32_t n0, const uint32_t* r
   return c;
 }
 
+// Block b's 3 C column sums of the fused step on a grid of nbr blocks: its
+// threads' terms one after another
+void block_sums(const Step& s, int b, int nbr, const uint32_t (&r)[W], const mont::Modulus<W>& M,
+                uint64_t (&cols)[kRows][C]) {
+  for (int row = 0; row < kRows; ++row)
+    for (int j = 0; j < C; ++j) cols[row][j] = 0;
+  for (int t = 0; t < kThreads; ++t) {
+    uint32_t acc[kRows][C] = {};
+    auto add_term = [&](int row, const uint32_t (&term)[W]) { mont::acc_add<W>(acc[row], term); };
+    step_thread(add_term, s, b, nbr, t, r, M);
+    for (int row = 0; row < kRows; ++row)
+      for (int j = 0; j < C; ++j) cols[row][j] += acc[row][j];
+  }
+}
+
+// Block b's 3 C column sums of a tail round on nbr blocks: every thread's
+// fold, a barrier, then each live thread's terms (terms_live) one after
+// another
+void tail_block_sums(const Step& s, int b, int nbr, const uint32_t (&r)[W],
+                     const mont::Modulus<W>& M, uint64_t (&cols)[kRows][C]) {
+  const sums::Run run = tail_run(s, b, nbr);
+  for (int t = 0; t < kThreads; ++t) fold_thread(s, run, t, r, M);
+  for (int row = 0; row < kRows; ++row)
+    for (int j = 0; j < C; ++j) cols[row][j] = 0;
+  for (int t = 0; t < terms_live(run); ++t) {
+    uint32_t acc[kRows][C] = {};
+    auto add_term = [&](int row, const uint32_t (&term)[W]) { mont::acc_add<W>(acc[row], term); };
+    terms_thread(add_term, s, run, t, M);
+    for (int row = 0; row < kRows; ++row)
+      for (int j = 0; j < C; ++j) cols[row][j] += acc[row][j];
+  }
+}
+
 // One step on a grid of nbr blocks, the blocks in reverse order: each block's
-// threads one after another, then its column sums into the partials
+// column sums into the partials
 void grid_step(const Step& s, int nbr, const uint32_t (&r)[W], const mont::Modulus<W>& M,
                uint64_t* partials) {
   for (int b = nbr - 1; b >= 0; --b) {
-    uint64_t cols[kRows][C] = {};
-    for (int t = 0; t < kThreads; ++t) {
-      uint32_t acc[kRows][C] = {};
-      auto add_term = [&](int row, const uint32_t (&term)[W]) { mont::acc_add<W>(acc[row], term); };
-      step_thread(add_term, s, b, nbr, t, r, M);
-      for (int row = 0; row < kRows; ++row)
-        for (int j = 0; j < C; ++j) cols[row][j] += acc[row][j];
-    }
+    uint64_t cols[kRows][C];
+    block_sums(s, b, nbr, r, M, cols);
     for (int row = 0; row < kRows; ++row)
       for (int j = 0; j < C; ++j) partials[sums::partial_at(row, j, b, C, nbr)] = cols[row][j];
   }
@@ -140,7 +169,7 @@ void gp_big_round(const uint32_t* tables, long long size, const uint32_t* r_in, 
                   uint32_t* out_rows, uint64_t* state_out, uint32_t* challenge, int nbr,
                   uint64_t* partials) {
   const transcript::Consts c = make_consts(p, n0, r2, inv2);
-  const Step s{tables, size, out, size / 2, size, r_in != nullptr};
+  const Step s{tables, size, out, size / 2, size, r_in != nullptr, false, false};
   uint32_t r[W];
   load_r(r, r_in);
   grid_step(s, nbr, r, c.M, partials);
@@ -148,27 +177,41 @@ void gp_big_round(const uint32_t* tables, long long size, const uint32_t* r_in, 
          challenge);
 }
 
-// gkr_phase_tail_kernel's work: a grid sync is the boundary between two steps
+// gkr_phase_tail_kernel's work on at most nbr blocks: each grid round on its
+// busy blocks (step_blocks), in reverse order, their partials finished; each
+// block round on one block, the stack in a buffer that stands for its shared
+// memory; the last fold from the table the last round summed
 void gp_phase_tail(const uint32_t* tables, long long size, uint32_t* work, const uint32_t* r_in,
                    const uint64_t* state_in, const uint64_t* prefix, int prefix_lanes,
                    const uint32_t* p, uint32_t n0, const uint32_t* r2, const uint32_t* inv2,
                    uint32_t* out_rows, uint64_t* states, uint32_t* challenges, uint32_t* wb,
-                   int nbr, uint64_t* partials) {
+                   int nbr, long long block_max, uint64_t* partials, int* round_blocks) {
   const transcript::Consts c = make_consts(p, n0, r2, inv2);
   const bool pending = r_in != nullptr;
   const int rounds = tail_rounds(size, pending);
+  std::vector<uint32_t> shared(4 * shared_stride(size, block_max) * W, 0xdeadbeefu);
+  const Step first = tail_step(tables, size, work, shared.data(), pending, block_max, 0);
+  const int grid = first.block ? 1 : step_blocks(first, nbr);
+  Step s;
   for (int k = 0; k < rounds; ++k) {
-    const Step s = tail_step(tables, size, size, work, size / 2, pending, k);
+    s = tail_step(tables, size, work, shared.data(), pending, block_max, k);
     uint32_t r[W];
     load_r(r, s.fold ? (k == 0 ? r_in : challenges + (k - 1) * W) : nullptr);
-    grid_step(s, nbr, r, c.M, partials);
+    const int busy = s.block ? 1 : step_blocks(s, grid);
+    round_blocks[k] = s.block ? 0 : busy;
+    for (int b = busy - 1; b >= 0; --b) {
+      uint64_t cols[kRows][C];
+      tail_block_sums(s, b, busy, r, c.M, cols);
+      for (int row = 0; row < kRows; ++row)
+        for (int j = 0; j < C; ++j) partials[sums::partial_at(row, j, b, C, busy)] = cols[row][j];
+    }
     const uint64_t* digest = tail_digest(prefix, states, k);
-    finish(partials, nbr, !s.fold, state_in, s.fold ? digest : prefix, prefix_lanes, c,
+    finish(partials, busy, !s.fold, state_in, s.fold ? digest : prefix, prefix_lanes, c,
            out_rows + k * kRows * W, states + k * keccak::kLanes, challenges + k * W);
   }
   uint32_t r[W];
   load_r(r, challenges + (rounds - 1) * W);
-  last_fold(wb, last_table(tables, work, pending, rounds), r, c.M);
+  last_fold(wb, last_table(s), last_shared(s), r, c.M);
 }
 
 int gp_tail_rounds(long long size, int pending) { return tail_rounds(size, pending); }
@@ -188,7 +231,7 @@ def lib(tmp_path_factory):
     _P, _I, _LL, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_uint32
     lib.gp_big_round.argtypes = [_P, _LL, _P, _P, _P, _P, _I, _P, _U, _P, _P, _P, _P, _P, _I, _P]
     lib.gp_phase_tail.argtypes = [_P, _LL, _P, _P, _P, _P, _I, _P, _U, _P, _P, _P, _P, _P, _P,
-                                  _I, _P]
+                                  _I, _LL, _P, _P]
     lib.gp_tail_rounds.argtypes = [_LL, _I]
     return lib
 
@@ -245,7 +288,9 @@ def _host_big_round(lib, tables, r, state, tail, nbr):
     return (folded if r is not None else tables), out, new_state, challenge
 
 
-def _host_tail(lib, tables, r, state, tail, nbr):
+def _host_tail(lib, tables, r, state, tail, nbr, block_max=gk.BLOCK_MAX, blocks=None):
+    """The tail on the host harness; ``blocks``, where given, gets each
+    round's busy blocks (0: a block round)."""
     size = tables.shape[2]
     rounds = lib.gp_tail_rounds(size, int(r is not None))
     assert rounds == gk.tail_rounds(size, r is not None)
@@ -257,17 +302,46 @@ def _host_tail(lib, tables, r, state, tail, nbr):
     wb = torch.zeros(W, dtype=torch.int32)
     prefix, prefix_lanes = (state, 4) if tail is None else (tail, tail.shape[0])
     partials = np.zeros(3 * (W + 1) * nbr, np.uint64)
+    busy = np.zeros(rounds, np.int32)
     lib.gp_phase_tail(_ptr(tables), size, _ptr(work), _ptr(r), _ptr(state), _ptr(prefix),
                       prefix_lanes, _ptr(p), ctx.n0_prime32, _ptr(r2), _ptr(inv2), _ptr(out),
-                      _ptr(states), _ptr(challenges), _ptr(wb), nbr, _ptr(partials))
+                      _ptr(states), _ptr(challenges), _ptr(wb), nbr, block_max, _ptr(partials),
+                      _ptr(busy))
+    if blocks is not None:
+        blocks.extend(int(n) for n in busy)
     return out, wb, states[-1]
 
 
-#: (entries a table, pending tail lanes or None for a steady round, blocks):
-#: tails of 8 lanes keep 0-2 coefficients in one block and carry 3 into two, of
-#: 16 carry 1-3 and leave 0 in one
-CUH_CASES = ((2, 16, 1), (2, 8, 2), (4, None, 1), (4, 0, 3), (8, None, 2), (16, 8, 1),
-             (16, None, 3), (64, 16, 2), (64, None, 1))
+def _tiers(size: int, fold: bool, block_max: int, nbr: int) -> list[int]:
+    """The busy blocks of each round of a tail as the kernel plans them (0: a
+    block round): a round summing at most ``block_max`` entries a table is a
+    block round; a grid round gives each busy block a run of at least 32
+    indices, on at most the first round's blocks, themselves at most
+    ``nbr``."""
+    run = 32
+    summed, indices = [], []
+    for k in range(gk.tail_rounds(size, fold)):
+        folds = k + 1 if fold else k
+        summed.append(size >> folds if folds else size)
+        indices.append(summed[-1] // 2)
+    if summed[0] <= block_max:
+        return [0] * len(summed)
+    grid = min(nbr, -(-indices[0] // run))
+    return [0 if n <= block_max else min(grid, -(-i // run)) for n, i in zip(summed, indices)]
+
+
+#: (entries a table, pending tail lanes or None for a steady round, blocks,
+#: block_max): tails of 8 lanes keep 0-2 coefficients in one block and carry 3
+#: into two, of 16 carry 1-3 and leave 0 in one. At ``gk.BLOCK_MAX`` (2^7)
+#: these tails are block rounds only; at 2^2 a 64-entry tail runs grid rounds, then
+#: block rounds (its first fold into the block's memory from the caller's
+#: stack or from the work buffer); at 1, grid rounds only (the last fold from
+#: the work buffer, or from the caller's stack in a tail of one round)
+CUH_CASES = ((2, 16, 1, gk.BLOCK_MAX), (2, 8, 2, gk.BLOCK_MAX), (4, None, 1, gk.BLOCK_MAX),
+             (4, 0, 3, gk.BLOCK_MAX), (8, None, 2, gk.BLOCK_MAX), (16, 8, 1, gk.BLOCK_MAX),
+             (16, None, 3, gk.BLOCK_MAX), (64, 16, 2, gk.BLOCK_MAX), (64, None, 1, gk.BLOCK_MAX),
+             (64, 8, 3, 4), (64, 16, 1, 4), (64, None, 2, 4), (64, None, 3, 4), (8, 16, 2, 4),
+             (4, None, 1, 2), (2, 8, 2, 1), (8, 16, 3, 1), (16, None, 2, 1))
 
 
 @pytest.mark.parametrize("trim", range(4))
@@ -276,28 +350,33 @@ def test_gkr_phase_cuh_equals_plain(lib, trim):
     plain versions on the same stacks: every case's round polynomials trim to
     ``trim`` coefficients."""
     rng = np.random.default_rng(60 + trim)
-    for size, tail_lanes, nbr in CUH_CASES:
+    for size, tail_lanes, nbr, block_max in CUH_CASES:
         tables = _stack(rng, size, trim)
         state = _lanes(rng, 25)
         tail = None if tail_lanes is None else _lanes(rng, tail_lanes)
         r = None if tail is not None else ctx.to_device(ctx.pack(_values(rng, 1)))[0]
-        what = f"size {size}, tail {tail_lanes}, trim {trim}"
+        what = f"size {size}, tail {tail_lanes}, trim {trim}, block_max {block_max}"
         if size >= (4 if r is not None else 2):
             got = _host_big_round(lib, tables, r, state, tail, nbr)
             want = gk.gkr_big_round_plain(ctx, tables, r, state, tail)
             for g, w in zip(got, want):
                 assert torch.equal(g, w), what
             assert tk.trim_len(want[1]) == trim, what
-        got = _host_tail(lib, tables, r, state, tail, nbr)
+        blocks = []
+        got = _host_tail(lib, tables, r, state, tail, nbr, block_max, blocks)
         want = gk.gkr_phase_tail_plain(ctx, tables, r, state, tail)
         for g, w in zip(got, want):
             assert torch.equal(g, w), what
         assert {tk.trim_len(rows) for rows in want[0]} == {trim}, what
+        assert blocks == _tiers(size, r is not None, block_max, nbr), what
 
 
 def test_gkr_phase_cuh_grid_stride(lib):
     """One block of 256 threads on a stack of 2^11 entries: each thread folds
-    and sums two indices, and a tail of ten rounds from it."""
+    and sums two indices, and a tail of ten rounds from it, all block rounds
+    at the largest block_max, 2^10 (eight folds and six terms a thread in the
+    first); then a phase's first round on it, a grid round of two blocks of
+    512 indices each, and block rounds from 2^10 entries."""
     rng = np.random.default_rng(64)
     tables = _stack(rng, 1 << 11, 3)
     state = _lanes(rng, 25)
@@ -305,9 +384,43 @@ def test_gkr_phase_cuh_grid_stride(lib):
     for g, w in zip(_host_big_round(lib, tables, r, state, None, 1),
                     gk.gkr_big_round_plain(ctx, tables, r, state)):
         assert torch.equal(g, w)
-    for g, w in zip(_host_tail(lib, tables, r, state, None, 2),
+    blocks = []
+    for g, w in zip(_host_tail(lib, tables, r, state, None, 2, 1 << 10, blocks),
                     gk.gkr_phase_tail_plain(ctx, tables, r, state)):
         assert torch.equal(g, w)
+    assert blocks == [0] * 10
+    tail, blocks = _lanes(rng, 8), []
+    for g, w in zip(_host_tail(lib, tables, None, state, tail, 2, 1 << 10, blocks),
+                    gk.gkr_phase_tail_plain(ctx, tables, None, state, tail)):
+        assert torch.equal(g, w)
+    assert blocks == [2] + [0] * 10
+
+
+#: (entries a table, pending tail lanes or None, blocks, block_max, the busy
+#: blocks of each round): grid rounds of several blocks, which shrink, then
+#: block rounds that fold first from the work buffer or the caller's stack
+TIER_CASES = ((1 << 12, None, 3, 1 << 10, [3] + [0] * 10),
+              (1 << 11, None, 40, 1 << 6, [16, 8, 4, 2] + [0] * 6),
+              (1 << 11, 16, 4, 1 << 9, [4, 4] + [0] * 9),
+              (1 << 10, 8, 3, 1, [3, 3, 3, 2] + [1] * 6))
+
+
+@pytest.mark.parametrize("case", range(len(TIER_CASES)))
+def test_gkr_phase_cuh_tiers(lib, case):
+    """Tails whose grid rounds run on several blocks, the blocks that later
+    rounds leave idle returning, then block rounds (or none at block_max 1),
+    against the plain version."""
+    size, tail_lanes, nbr, block_max, want_blocks = TIER_CASES[case]
+    rng = np.random.default_rng(70 + case)
+    tables = _stack(rng, size, 3)
+    state = _lanes(rng, 25)
+    tail = None if tail_lanes is None else _lanes(rng, tail_lanes)
+    r = None if tail is not None else ctx.to_device(ctx.pack(_values(rng, 1)))[0]
+    blocks = []
+    got = _host_tail(lib, tables, r, state, tail, nbr, block_max, blocks)
+    for g, w in zip(got, gk.gkr_phase_tail_plain(ctx, tables, r, state, tail)):
+        assert torch.equal(g, w)
+    assert blocks == want_blocks == _tiers(size, r is not None, block_max, nbr)
 
 
 def test_wrappers_on_the_cpu_are_the_plain_versions():

@@ -56,11 +56,12 @@ from . import lazy as lazy_mod
 NUM_COEFFS = 3
 #: rounds whose table is above this many entries take a ``gkr_big_round``
 #: launch each; the rest of the phase takes one ``gkr_phase_tail`` launch. On
-#: an H100 a whole phase took least time with the largest threshold timed,
-#: 2^18 (from 2^13: ``scripts/time_kernels.py``'s ``gkr`` part). A module
-#: attribute, read at call time (tests force it down to run both kernels on a
-#: small circuit); at least 2.
-TAIL_MAX = 1 << 18
+#: an H100 the walk's 40 phases took least time at 2^16 of 2^14 to 2^20
+#: (``scripts/time_kernels.py``'s ``tail`` part): the tail's rounds above it,
+#: on one block an SM, are slower than big rounds on two. A module attribute,
+#: read at call time (tests force it down to run both kernels on a small
+#: circuit); at least 2.
+TAIL_MAX = 1 << 16
 
 
 class _PhaseConsts:

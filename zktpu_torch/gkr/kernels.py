@@ -16,10 +16,14 @@ the same words:
                           to finish the round's transcript step
                           (``round_step``'s work: the canonical coefficients,
                           the trimmed absorb, the state, the next challenge);
-  * ``gkr_phase_tail`` -- every remaining round of a phase in one cooperative
-                          launch, down to the table of two entries, and the
-                          last fold, whose one entry of the [0, 0] table is
-                          w(r_b) after phase 1.
+  * ``gkr_phase_tail`` -- every remaining round of a phase in one launch, down
+                          to the table of two entries, and the last fold,
+                          whose one entry of the [0, 0] table is w(r_b) after
+                          phase 1. A round that sums at most ``BLOCK_MAX``
+                          entries a table runs on one block, the stack in its
+                          shared memory; a wider one on its busy blocks of a
+                          cooperative grid, which meet block 0 at a counter
+                          and a flag.
 
 The plain versions are the port's earlier per-round chain: ``fold_plain``, then
 ``gkr_round_plain``, then ``round_step_plain`` (``field.kernels``,
@@ -57,6 +61,15 @@ STATE_LANES = tk.STATE_LANES
 #: cap on the blocks of a gkr_big_round launch: enough to fill the card several
 #: times over (an index a thread at 2^20 entries)
 MAX_BIG_BLOCKS = 1024
+#: the rounds of a ``gkr_phase_tail`` that sum at most this many entries a
+#: table run on one block, in its shared memory, with no grid-wide wait (a
+#: power of two, 1 to 2^10, the most the block's shared memory holds; 1: no
+#: such round). On an H100 the walk's 40 tails took least device time at 2^7
+#: of 2^5 to 2^10 (``scripts/time_kernels.py``'s ``tail`` part): a larger
+#: round on one block is a longer chain of products on each thread than the
+#: grid's wait costs. A module attribute, read at call time (tests force it
+#: down).
+BLOCK_MAX = 1 << 7
 
 KERNEL_NAMES = ("gkr_big_round", "gkr_phase_tail")
 #: kernel name -> launches made by its wrapper since the last reset
@@ -123,7 +136,7 @@ _SIGNATURES = {
     "zk_gkr_phase_scratch_words": [_I],
     "zk_gkr_big_round": [_P, _LL, _P, _P, _P, _P, _I, _P, _U32, _P, _P, _P, _P, _P, _P, _I, _P],
     "zk_gkr_phase_tail": [_P, _LL, _P, _P, _P, _P, _I, _P, _U32, _P, _P, _P, _P, _P, _P, _P, _I,
-                          _P],
+                          _LL, _P],
 }
 
 
@@ -176,8 +189,8 @@ def _rows_out(ctx: FieldCtx, out, rounds: int):
 
 @functools.lru_cache(maxsize=None)
 def _resident(lib, device) -> int:
-    """Blocks of gkr_phase_tail that the card holds at once: the most a
-    cooperative launch may take."""
+    """Blocks of gkr_phase_tail that the card holds at once, with its largest
+    shared memory: the most a cooperative launch may take."""
     with torch.cuda.device(device):
         n = lib.zk_gkr_phase_resident(1)
     if n <= 0:
@@ -186,8 +199,9 @@ def _resident(lib, device) -> int:
 
 
 #: (device, stream) -> the uint64 scratch of both kernels on that stream: the
-#: big round's ticket, zeroed here once (its last block resets it), then room
-#: for the partials of the larger of the two grids
+#: big round's ticket and the tail's counter and flag, zeroed here once (the
+#: kernels reset them), then room for the partials of the larger of the two
+#: grids
 _scratch: dict[tuple, torch.Tensor] = {}
 
 
@@ -266,8 +280,9 @@ def gkr_big_round(ctx: FieldCtx, tables, r, state, tail=None, out=None):
 
 
 def gkr_phase_tail(ctx: FieldCtx, tables, r, state, tail=None, out=None):
-    """Every remaining round of a GKR phase, and its last fold, in one
-    cooperative launch on the card.
+    """Every remaining round of a GKR phase, and its last fold, in one launch
+    on the card: its rounds above ``BLOCK_MAX`` entries on a cooperative grid,
+    the rest on one block.
 
     ``tables``, ``r``, ``state``, ``tail``: as for ``gkr_big_round``; the tail
     runs rounds until the summed table has two entries (``tail_rounds``), each
@@ -299,12 +314,11 @@ def gkr_phase_tail(ctx: FieldCtx, tables, r, state, tail=None, out=None):
     with torch.cuda.device(dev):
         stream = tk._stream(dev)
         scratch = _phase_scratch(lib, dev, stream)
-        nbr = _blocks(lib, size // 4 if fold else size // 2, _resident(lib, dev))
         err = lib.zk_gkr_phase_tail(
             tables.data_ptr(), size, work.data_ptr(), r.data_ptr() if fold else None,
             state.data_ptr(), prefix.data_ptr(), prefix_lanes, ctx.p_words_c, ctx.n0_prime32,
             r2, inv2, out.data_ptr(), states.data_ptr(), challenges.data_ptr(), wb.data_ptr(),
-            scratch.data_ptr(), nbr, stream,
+            scratch.data_ptr(), _resident(lib, dev), BLOCK_MAX, stream,
         )
     fk._raise_on(err, "gkr_phase_tail")
     _count("gkr_phase_tail", size, fold, rounds)
