@@ -1441,7 +1441,7 @@ def phase_kzg_times(ctx, circuit, inputs, proof, taus) -> float:
 
     # the stages, each alone and synchronised
     (layers, input_poly), t_walk = timed(
-        lambda: gkr._walk_layers(circuit, inputs, None, None, lambda label: None))
+        lambda: gkr._walk_layers(circuit, inputs, None, None))
     kzg, t_setup = timed(lambda: KZG.for_poly(input_poly, taus))
     (o_b, o_c), t_open = timed(
         lambda: (kzg.open(layers.r_b, input_poly), kzg.open(layers.r_c, input_poly)))

@@ -6,15 +6,16 @@ Run on a machine with one CUDA device, from the repo's root:
     python3 scripts/profile_prove.py [--num-vars 20]         # the plain sumcheck
     python3 scripts/profile_prove.py --gkr [--num-vars 20]   # the GKR layer walk
     python3 scripts/profile_prove.py --kzg [--num-vars 20]   # the KZG input proof
+    python3 scripts/profile_prove.py --record [--pairs 8]    # the recorder's cost
 
 Sumcheck: (1) host-clock times of the prover's stages, each closed by a
 synchronise, and (2) a ``torch.profiler`` summary of one warm prove and one warm
 verify: the number of device kernels launched, their summed device time, the
 device's idle share of the wall time, and the kernels that take most of it.
 
-GKR: the stages of the input layer's fused sumcheck one by one, the whole walk
-layer by layer (the ``ZKTPU_TRACE`` marks of ``prove_layers``), the verifier's
-time, and a profiler summary of one small fused layer.
+GKR: the stages of the input layer's fused sumcheck one by one, the whole walk's
+program spans (``utils.tracker``: host ms by stage, fetches, work records), the
+verifier's time, and a profiler summary of one small fused layer.
 
 KZG: the stages of the input proof one by one (set-up, commitment, basis chain,
 quotient tables, each step's batched quotient MSM with its window width, all
@@ -24,12 +25,18 @@ stages inside the commitment MSM (each compaction round's ``run_scan`` and
 share of its device time each kernel takes, and the device's idle share; and
 the least device time of a whole ``gkr.prove``'s ``compact_add`` launches (each
 launch's bound, summed) and Horner chains (one thread's floor of each).
+
+Record: the whole ``gkr.prove`` with its KZG input proof, each proof timed
+to a synchronise after it, with the program's recording off and on in turns
+(off, on, on, off, ``--pairs`` times), the medians of each, and the spans of
+one recorded proof.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -53,7 +60,7 @@ from zktpu_torch.msm import kernels as mk  # noqa: E402
 from zktpu_torch.msm import pippenger as pp  # noqa: E402
 from zktpu_torch.pcs.kzg import KZG  # noqa: E402
 from zktpu_torch.poly.multilinear import MultilinearPoly  # noqa: E402
-from zktpu_torch.utils import roofline  # noqa: E402
+from zktpu_torch.utils import roofline, tracker  # noqa: E402
 from zktpu_torch.sumcheck import fused, protocol  # noqa: E402
 from zktpu_torch.transcript import Transcript  # noqa: E402
 
@@ -111,6 +118,22 @@ def profiled(label: str, fn) -> None:
         print(f"    {e.device_time_total / 1e3:9.3f} ms  x{e.count:<6d} {e.key[:90]}")
 
 
+def print_records(records) -> None:
+    """One recorded run's spans summed by depth and name (host ms, in the
+    order first opened), its fetches by site and its work records by name."""
+    totals: dict = {}
+    for name, start, end, depth in sorted(records["spans"], key=lambda s: (s[1], s[3])):
+        n, ns = totals.get((depth, name), (0, 0))
+        totals[depth, name] = (n + 1, ns + end - start)
+    for (depth, name), (n, ns) in totals.items():
+        print(f"  {'  ' * depth}{name}: {ns / 1e6:.2f} ms over {n} span(s)")
+    for kind in ("fetches", "work"):
+        counts: dict = {}
+        for rec in records[kind]:  # (time, site or name, ...)
+            counts[rec[1]] = counts.get(rec[1], 0) + 1
+        print(f"  {kind}: {sum(counts.values())} {counts}")
+
+
 def gkr_layer_stages(ctx, w_poly, layer) -> None:
     """The steps of one layer's fused sumcheck (``lazy_folded_fbc`` ->
     ``gkr_prove_lazy_fused``) and of its two input evaluations, one by one."""
@@ -126,7 +149,7 @@ def gkr_layer_stages(ctx, w_poly, layer) -> None:
     tables1 = timed("phase-1 stack [[F, G], [H, 1]]", lambda: torch.stack(
         [torch.stack([fbc.w_table, gh[0]]), torch.stack([gh[1], ones])]))
     _, challenges, wb = timed(f"phase 1: {k + 1} rounds on the device + fetch + host replay",
-                              lambda: fused_lazy._run_phase(ctx, transcript, tables1))
+                              lambda: fused_lazy._run_phase(ctx, transcript, tables1, ones=True))
     eqb = timed("eq(r_b, .) table",
                 lambda: gkr_lazy.eq_tensor(ctx, gkr_lazy._encode(ctx, challenges)))
     tables2 = timed("phase-2 stack", lambda: gkr_lazy._phase2_tables_kernel(
@@ -149,12 +172,14 @@ def gkr_mode(num_vars: int) -> int:
     print(f"stages of the input layer's sumcheck (2^{num_vars} w-entries; host clock, synchronised):")
     gkr_layer_stages(ctx, input_poly, circuit.layers[0])
 
-    print("the whole walk, layer by layer (marks on stderr follow):", flush=True)
-    os.environ["ZKTPU_TRACE"] = "1"
+    print("the whole walk's program spans (host clock, no synchronise inside):", flush=True)
+    tracker.reset()
+    tracker.record(True)
     try:
         timed("whole prove_layers", lambda: gkr.prove_layers(circuit, inputs))
     finally:
-        del os.environ["ZKTPU_TRACE"]
+        tracker.record(False)
+    print_records(tracker.records())
     timed("whole verify_layers",
           lambda: gkr.verify_layers(proved.proof, circuit, proved.input_evals))
 
@@ -305,6 +330,42 @@ def kzg_mode(num_vars: int) -> int:
     return 0
 
 
+def record_mode(num_vars: int, pairs: int) -> int:
+    ctx = fb.get_ctx(BLS12_381_FR)
+    structure, inputs = chip_smoke.gkr_benchmark(num_vars)
+    taus = chip_smoke.gkr_benchmark_taus(num_vars)
+    circuit = Circuit(ctx, structure)
+
+    def prove_s(on: bool) -> float:
+        tracker.reset()
+        tracker.record(on)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        gkr.prove(circuit, inputs, taus=taus)
+        torch.cuda.synchronize()
+        tracker.record(False)
+        return time.time() - t0
+
+    prove_s(False)
+    prove_s(True)  # warm: builds the kernels
+    times: dict = {False: [], True: []}
+    for _ in range(pairs):
+        for on in (False, True, True, False):
+            times[on].append(prove_s(on))
+    for on in (False, True):
+        q = statistics.quantiles(times[on], n=4)
+        print(f"recording {'on ' if on else 'off'}: median {statistics.median(times[on]):.4f} s, "
+              f"quartiles {q[0]:.4f} / {q[2]:.4f}, each " + " ".join(f"{t:.4f}" for t in times[on]))
+    ratios = [(times[True][2 * k] + times[True][2 * k + 1])
+              / (times[False][2 * k] + times[False][2 * k + 1]) for k in range(pairs)]
+    print("on / off, each off-on-on-off group: " + " ".join(f"{r:.4f}" for r in ratios)
+          + f"; median {statistics.median(ratios):.4f}")
+    print(f"the spans of one recorded proof at 2^{num_vars} inputs:")
+    prove_s(True)
+    print_records(tracker.records())
+    return 0
+
+
 def _small_msm(ctx):
     from zktpu_torch.curve import device as dc
     from zktpu_torch.msm import generator_comb_mul
@@ -318,6 +379,9 @@ def main() -> int:
     ap.add_argument("--num-vars", type=int, default=20)
     ap.add_argument("--gkr", action="store_true", help="profile the GKR layer walk")
     ap.add_argument("--kzg", action="store_true", help="profile the KZG input proof")
+    ap.add_argument("--record", action="store_true",
+                    help="time gkr.prove with the program's recording off and on")
+    ap.add_argument("--pairs", type=int, default=8)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_prove: no CUDA device", file=sys.stderr)
@@ -329,6 +393,8 @@ def main() -> int:
         return gkr_mode(args.num_vars)
     if args.kzg:
         return kzg_mode(args.num_vars)
+    if args.record:
+        return record_mode(args.num_vars, args.pairs)
     ctx = fb.get_ctx(BN254_FQ)
     poly = MultilinearPoly.from_ints(ctx, chip_smoke.benchmark_values(args.num_vars))
     proof = fused.prove(poly)  # warm: builds the kernels, caches the host sponge

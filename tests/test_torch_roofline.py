@@ -175,9 +175,6 @@ def test_one_peak_entry_and_none_without_a_card():
         rl.bound(1, 1)
     with pytest.raises(RuntimeError):
         rl.measure("fold", lambda: None, bytes_accessed=1, lane_ops=1)
-    with pytest.raises(RuntimeError):
-        with rl.trace("unused"):
-            pass
 
 
 def test_chip_smoke_keeps_no_rate_of_its_own():

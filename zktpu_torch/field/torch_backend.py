@@ -36,6 +36,7 @@ import functools
 import numpy as np
 import torch
 
+from ..utils import tracker
 from .spec import LIMB_BITS, LIMB_MASK, FieldSpec
 
 _I64 = torch.int64
@@ -48,8 +49,12 @@ def words_to_tensor(words: np.ndarray, device) -> torch.Tensor:
 
 
 def tensor_to_words(t) -> np.ndarray:
-    """int32 tensor (or array) -> numpy uint32 words (same bits) on the host."""
+    """int32 tensor (or array) -> numpy uint32 words (same bits) on the host.
+    A tensor is read back here (``tracker.fetch``): on a card a copy that
+    waits for the queue to drain, on the CPU the same point of the path."""
     if isinstance(t, torch.Tensor):
+        if tracker.recording:
+            tracker.fetch("tensor_to_words", t.numel() * t.element_size())
         t = t.detach().cpu().numpy()
     return np.ascontiguousarray(t).astype(np.int32, copy=False).view(np.uint32)
 

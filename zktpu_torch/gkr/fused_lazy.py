@@ -36,6 +36,12 @@ takes one block or two.
 After each device phase the host transcript replays the fetched coefficient
 appends/squeezes (a few Keccak blocks), so the surrounding GKR protocol code
 (alpha/beta folds, o_1/o_2 absorbs) continues unchanged.
+
+With ``utils.tracker`` recording, a layer's host time splits into spans:
+``gkr.tables`` (the phase stacks, and phase 2's eq table), ``gkr.phase``
+(queueing a phase's launches), ``gkr.fetch`` (waiting on its coefficient rows)
+and ``gkr.replay`` (the host transcript); each phase records its least work
+once (``roofline.gkr_phase_cost``), however ``TAIL_MAX`` splits it.
 """
 
 from __future__ import annotations
@@ -49,6 +55,7 @@ from ..hash import kernels as tk
 from ..poly.univariate import UnivariatePoly
 from ..sumcheck.protocol import GkrSumcheckProof, _encode
 from ..transcript import Transcript
+from ..utils import roofline, tracker
 from . import kernels as gk
 from . import lazy as lazy_mod
 
@@ -77,18 +84,23 @@ class _PhaseConsts:
         self.tail = packed[tk.STATE_LANES :]
 
 
-def _device_phase(ctx: FieldCtx, tables, consts: _PhaseConsts):
+def _device_phase(ctx: FieldCtx, tables, consts: _PhaseConsts, ones: bool = False):
     """All rounds of one phase on the device, nothing fetched and nothing
     uploaded: ``consts`` holds every upload. A round above ``TAIL_MAX``
     entries is one ``gkr_big_round`` launch (its fold at the last round's
     challenge, its sums, its coefficients into the round's slot, the absorb,
     the next challenge); the rest of the phase is one ``gkr_phase_tail``.
+    ``ones``: the stack's [1, 1] table is phase 1's constant ones, which the
+    phase's work record (``roofline.gkr_phase_cost``) does not price.
 
     Returns ((nb, 3, W) canonical coefficient rows, (W,) the folded [0, 0]
     table's one entry -- w(r_b) after phase 1).
     """
     if TAIL_MAX < 2:
         raise ValueError(f"TAIL_MAX is {TAIL_MAX}: a phase tail takes at least one round")
+    if tracker.recording:
+        nbytes, ops, floor_ms = roofline.gkr_phase_cost(tables.shape[2], ones)
+        tracker.work("gkr_phase", nbytes, ops, floor_ms * 1e6)
     nb = tables.shape[2].bit_length() - 1
     out = torch.empty((nb, NUM_COEFFS, ctx.num_words), dtype=torch.int32, device=ctx.device)
     state, tail, r = consts.state, consts.tail, None
@@ -102,23 +114,27 @@ def _device_phase(ctx: FieldCtx, tables, consts: _PhaseConsts):
     return out, wb
 
 
-def _run_phase(ctx: FieldCtx, transcript: Transcript, tables):
+def _run_phase(ctx: FieldCtx, transcript: Transcript, tables, ones: bool = False):
     """Queue one device phase, then replay its appends/squeezes on the host
-    transcript. Returns (round polys, challenges, wb device row)."""
+    transcript (``ones`` as in ``_device_phase``). Returns (round polys,
+    challenges, wb device row)."""
     nb = tables.shape[2].bit_length() - 1
     state_pairs, tail = transcript.sponge().state_lanes()
     if len(tail) % ctx.spec.byte_len:
         raise ValueError("transcript tail is not aligned to field elements")
     consts = _PhaseConsts(ctx, kd.pairs_to_lanes(state_pairs), kd.bytes_to_lanes(tail))
-    coeff_rows, wb = _device_phase(ctx, tables, consts)
-    ints = [int(v) for v in ctx.unpack(coeff_rows.reshape(-1, ctx.num_words))]
+    with tracker.span("gkr.phase"):
+        coeff_rows, wb = _device_phase(ctx, tables, consts, ones)
+    with tracker.span("gkr.fetch"):
+        ints = [int(v) for v in ctx.unpack(coeff_rows.reshape(-1, ctx.num_words))]
     polys, challenges = [], []
-    for k in range(nb):
-        poly = UnivariatePoly(ctx.spec, ints[NUM_COEFFS * k : NUM_COEFFS * (k + 1)])
-        poly.trim()  # match interpolate's trim (and the device absorb layout)
-        transcript.append_field_elements(poly.coefficients)
-        polys.append(poly)
-        challenges.append(transcript.get_random_challenge())
+    with tracker.span("gkr.replay"):
+        for k in range(nb):
+            poly = UnivariatePoly(ctx.spec, ints[NUM_COEFFS * k : NUM_COEFFS * (k + 1)])
+            poly.trim()  # match interpolate's trim (and the device absorb layout)
+            transcript.append_field_elements(poly.coefficients)
+            polys.append(poly)
+            challenges.append(transcript.get_random_challenge())
     return polys, challenges, wb
 
 
@@ -132,18 +148,20 @@ def gkr_prove_lazy_fused(claimed_sum: int, fbc: "lazy_mod.LazyFbc",
     nb = fbc.num_rounds // 2
 
     # ---- phase 1: [[F, G], [H, 1]] ---------------------------------------
-    gh = lazy_mod._phase1_tables_kernel(ctx, fbc.coef_a, fbc.coef_m, fbc.w_table)
-    ones = ctx.one_mont.expand(fbc.w_table.shape)
-    tables1 = torch.stack([
-        torch.stack([fbc.w_table, gh[0]]), torch.stack([gh[1], ones])
-    ])
-    polys1, challenges1, wb = _run_phase(ctx, transcript, tables1)
+    with tracker.span("gkr.tables"):
+        gh = lazy_mod._phase1_tables_kernel(ctx, fbc.coef_a, fbc.coef_m, fbc.w_table)
+        ones = ctx.one_mont.expand(fbc.w_table.shape)
+        tables1 = torch.stack([
+            torch.stack([fbc.w_table, gh[0]]), torch.stack([gh[1], ones])
+        ])
+    polys1, challenges1, wb = _run_phase(ctx, transcript, tables1, ones=True)
 
     # ---- phase 2 ----------------------------------------------------------
-    eqb = lazy_mod.eq_tensor(ctx, _encode(ctx, challenges1))
-    tables2 = lazy_mod._phase2_tables_kernel(
-        ctx, fbc.coef_a, fbc.coef_m, fbc.w_table, eqb, wb
-    )
+    with tracker.span("gkr.tables"):
+        eqb = lazy_mod.eq_tensor(ctx, _encode(ctx, challenges1))
+        tables2 = lazy_mod._phase2_tables_kernel(
+            ctx, fbc.coef_a, fbc.coef_m, fbc.w_table, eqb, wb
+        )
     polys2, challenges2, _ = _run_phase(ctx, transcript, tables2)
 
     if not len(polys1) == len(polys2) == nb:

@@ -27,6 +27,11 @@ Field: BLS12-381 Fr. Transcript bytes match the reference exactly; all O(2^n)
 steps (circuit evaluation, wiring tables, sumcheck rounds, SRS, MSMs) run on the
 device of the circuit's field context; the verifier's pairings run on the host.
 
+With ``utils.tracker`` recording, ``prove`` opens a span for each of its
+stages, none inside another: ``gkr.inputs``, ``gkr.evaluate``, ``gkr.absorb``,
+then a layer's ``gkr.tables``, ``gkr.sumcheck``, ``gkr.evals`` and
+``gkr.absorb``, then the input proof's ``kzg.*`` stages (``pcs/kzg.py``).
+
 Under an active mesh (``prove(mesh=...)``, or ``parallel.context.use_mesh``
 around ``prove_layers``) each lazy layer sumcheck whose w table the mesh's slots
 divide runs sharded (``parallel.mesh.gkr_sumcheck_lazy_sharded``), and the KZG
@@ -36,9 +41,6 @@ MSMs shard where ``pcs/kzg.py`` says; the proof bytes are the single device's.
 from __future__ import annotations
 
 import dataclasses
-import os
-import sys
-import time
 
 import torch
 
@@ -51,6 +53,7 @@ from ..poly.composed import ProductPoly, SumPoly
 from ..poly.multilinear import MultilinearPoly
 from ..sumcheck import protocol as sumcheck
 from ..transcript import Transcript
+from ..utils import tracker
 from . import lazy as lazy_mod
 from .circuit import ADD, MUL, Circuit, Layer
 from .fused_lazy import gkr_prove_lazy_fused
@@ -194,24 +197,6 @@ def _context(circuit: Circuit):
     return circuit.ctx
 
 
-def _stage_marks(ctx):
-    """``mark(label)``: with ``ZKTPU_TRACE=1`` in the environment, print the wall
-    time since the last mark to stderr (on the card after a synchronise, so that
-    a stage is charged its own device work); otherwise nothing."""
-    trace = os.environ.get("ZKTPU_TRACE") == "1"
-    last = [time.time()]
-
-    def mark(label: str) -> None:
-        if trace:
-            if ctx.device.type == "cuda":
-                torch.cuda.synchronize(ctx.device)
-            now = time.time()
-            print(f"    [gkr.prove] {label}: {now - last[0]:.2f}s", file=sys.stderr, flush=True)
-            last[0] = now
-
-    return mark
-
-
 def prove_layers(circuit: Circuit, inputs: list[int], lazy: bool | None = None,
                  fused: bool | None = None) -> LayersProof:
     """Every layer's sumcheck of a GKR proof over BLS12-381 Fr (reference
@@ -221,14 +206,13 @@ def prove_layers(circuit: Circuit, inputs: list[int], lazy: bool | None = None,
     the reference-shaped dense tensors; proof bytes are identical. Auto-selected
     when None. ``fused``: run each lazy phase with the Fiat-Shamir sponge on the
     device (``gkr/fused_lazy.py``); defaults to True whenever the lazy path is
-    active. With ``ZKTPU_TRACE=1`` in the environment the stages' wall times go
-    to stderr. Under ``parallel.context.use_mesh`` each lazy layer whose w table
+    active. Under ``parallel.context.use_mesh`` each lazy layer whose w table
     the mesh's slots divide runs ``gkr_sumcheck_lazy_sharded``; the proof is the
     same."""
-    return _walk_layers(circuit, inputs, lazy, fused, _stage_marks(circuit.ctx))[0]
+    return _walk_layers(circuit, inputs, lazy, fused)[0]
 
 
-def _walk_layers(circuit: Circuit, inputs: list[int], lazy, fused, mark):
+def _walk_layers(circuit: Circuit, inputs: list[int], lazy, fused):
     """The layer walk: (LayersProof, the input polynomial)."""
     ctx = _context(circuit)
     transcript = Transcript(FR)
@@ -237,17 +221,18 @@ def _walk_layers(circuit: Circuit, inputs: list[int], lazy, fused, mark):
     if fused is None:
         fused = lazy
 
-    input_poly = MultilinearPoly.from_ints(ctx, inputs)
-    mark("inputs upload")
-    circuit_evaluations = circuit.evaluate(input_poly)
-    mark("circuit evaluate")
+    with tracker.span("gkr.inputs"):
+        input_poly = MultilinearPoly.from_ints(ctx, inputs)
+    with tracker.span("gkr.evaluate"):
+        circuit_evaluations = circuit.evaluate(input_poly)
 
     w_0 = circuit_evaluations[-1]
     if w_0.table.shape[0] == 1:  # pad single output to a 1-var MLE (:36-38)
         w_0 = MultilinearPoly(ctx, torch.cat([w_0.table, torch.zeros_like(w_0.table)]))
     output_poly = w_0
 
-    claimed_sum, random_challenge = _initiate_protocol(transcript, output_poly)
+    with tracker.span("gkr.absorb"):
+        claimed_sum, random_challenge = _initiate_protocol(transcript, output_poly)
 
     num_layers = circuit.num_layers
     proof_polys = []
@@ -264,43 +249,49 @@ def _walk_layers(circuit: Circuit, inputs: list[int], lazy, fused, mark):
         w_i = input_poly if idx == num_layers - 1 else evals_rev[idx + 1]
 
         if lazy:
-            if idx == 0:
-                fbc_poly = lazy_mod.lazy_fbc(ctx, random_challenge, layer, w_i)
-            else:
-                fbc_poly = lazy_mod.lazy_folded_fbc(
-                    ctx, layer, w_i, current_rb, current_rc, alpha, beta
-                )
+            with tracker.span("gkr.tables"):
+                if idx == 0:
+                    fbc_poly = lazy_mod.lazy_fbc(ctx, random_challenge, layer, w_i)
+                else:
+                    fbc_poly = lazy_mod.lazy_folded_fbc(
+                        ctx, layer, w_i, current_rb, current_rc, alpha, beta
+                    )
             mesh = pctx.current_mesh()
-            if mesh is not None and pctx.shardable(fbc_poly.w_table.shape[0], mesh, min_rows=1):
-                sc_proof = pm.gkr_sumcheck_lazy_sharded(claimed_sum, fbc_poly, transcript, mesh)
-            elif fused:
-                sc_proof = gkr_prove_lazy_fused(claimed_sum, fbc_poly, transcript)
-            else:
-                sc_proof = lazy_mod.gkr_prove_lazy(claimed_sum, fbc_poly, transcript)
+            with tracker.span("gkr.sumcheck"):
+                if mesh is not None and pctx.shardable(fbc_poly.w_table.shape[0], mesh,
+                                                       min_rows=1):
+                    sc_proof = pm.gkr_sumcheck_lazy_sharded(claimed_sum, fbc_poly, transcript,
+                                                            mesh)
+                elif fused:
+                    sc_proof = gkr_prove_lazy_fused(claimed_sum, fbc_poly, transcript)
+                else:
+                    sc_proof = lazy_mod.gkr_prove_lazy(claimed_sum, fbc_poly, transcript)
         else:
-            if idx == 0:
-                fbc_poly = get_fbc_poly(ctx, random_challenge, layer, w_i, w_i)
-            else:
-                fbc_poly = get_folded_fbc_poly(
-                    ctx, layer, w_i, w_i, current_rb, current_rc, alpha, beta
-                )
-            sc_proof = sumcheck.gkr_prove(claimed_sum, fbc_poly, transcript)
+            with tracker.span("gkr.tables"):
+                if idx == 0:
+                    fbc_poly = get_fbc_poly(ctx, random_challenge, layer, w_i, w_i)
+                else:
+                    fbc_poly = get_folded_fbc_poly(
+                        ctx, layer, w_i, w_i, current_rb, current_rc, alpha, beta
+                    )
+            with tracker.span("gkr.sumcheck"):
+                sc_proof = sumcheck.gkr_prove(claimed_sum, fbc_poly, transcript)
         proof_polys.append(sc_proof.proof_polynomials)
 
         mid = len(sc_proof.random_challenges) // 2
         current_rb = sc_proof.random_challenges[:mid]
         current_rc = sc_proof.random_challenges[mid:]
 
-        mark(f"layer {idx} sumcheck ({w_i.table.shape[0]} w-entries)")
-        o_1 = w_i.evaluate_int(current_rb)
-        o_2 = w_i.evaluate_int(current_rc)
-        mark(f"layer {idx} o1/o2 evals")
+        with tracker.span("gkr.evals"):
+            o_1 = w_i.evaluate_int(current_rb)
+            o_2 = w_i.evaluate_int(current_rc)
 
         if idx < num_layers - 1:
-            transcript.append_field_elements([o_1])
-            alpha = transcript.get_random_challenge()
-            transcript.append_field_elements([o_2])
-            beta = transcript.get_random_challenge()
+            with tracker.span("gkr.absorb"):
+                transcript.append_field_elements([o_1])
+                alpha = transcript.get_random_challenge()
+                transcript.append_field_elements([o_2])
+                beta = transcript.get_random_challenge()
             claimed_sum = (alpha * o_1 + beta * o_2) % FR.modulus
             claimed_evaluations.append((o_1, o_2))
 
@@ -324,20 +315,16 @@ def prove(circuit: Circuit, inputs: list[int], taus: list[int] | None = None,
     if mesh is not None:
         with pctx.use_mesh(mesh):
             return prove(circuit, inputs, taus=taus, lazy=lazy, fused=fused)
-    mark = _stage_marks(circuit.ctx)
-    layers, input_poly = _walk_layers(circuit, inputs, lazy, fused, mark)
+    layers, input_poly = _walk_layers(circuit, inputs, lazy, fused)
 
     if taus is None:
         taus = random_taus(input_poly.num_vars)
     kzg_instance = KZG.for_poly(input_poly, taus)
-    mark("KZG setup (SRS comb + g2 taus)")
     w_b_eval = kzg_instance.open(layers.r_b, input_poly)
     w_c_eval = kzg_instance.open(layers.r_c, input_poly)
-    mark("KZG opens")
     commitment, w_b_proof, w_c_proof = kzg_instance.commit_with_proof_pair(
         (w_b_eval, layers.r_b), (w_c_eval, layers.r_c), input_poly
     )
-    mark("KZG commit + proofs (batched MSMs)")
 
     proof = layers.proof
     proof.input_proof = KzgProof(

@@ -46,7 +46,11 @@ raises.
 ``lanes`` the keys (``run_scan``), slots (``compact_add``) or segments
 (``horner``: chains) they covered; ``scan_slots`` sums ``run_scan``'s
 ``l_next``, and ``chains`` splits ``horner``'s segments by (windows, c), what a
-chain's cost depends on.
+chain's cost depends on. With ``utils.tracker`` recording, each wrapper call,
+on the CPU too, records its least work (``utils.roofline``): ``run_scan`` its
+keys and slots, ``compact_add`` its slots each a survivor with no addition
+priced (which slots add is known only on the card), ``horner`` its chains with
+the longest one's one-thread time as a floor.
 """
 
 from __future__ import annotations
@@ -59,6 +63,7 @@ from .. import _build
 from ..curve import device as dc
 from ..curve import point_kernels as pk
 from ..field import torch_backend as fb
+from ..utils import roofline, tracker
 
 #: the key of a padding slot: above every (window, bucket) key of a group
 MAXKEY = 2**30
@@ -329,6 +334,8 @@ def run_scan(key, l_next: int):
     global scan_slots
     n = _check_vector("run_scan key", key)
     _check_l_next(l_next)
+    if tracker.recording:
+        tracker.work("run_scan", *roofline.run_scan_cost(n, l_next))
     if key.device.type == "cpu":
         return run_scan_plain(key, l_next)
     lib = library()
@@ -350,6 +357,8 @@ def compact_add(key, pt, srcpos, count):
     """``compact_add_plain``'s round; on the card one launch, a block a tile of
     slots, the count read there."""
     fq, n, l_next = _check_round(key, pt, srcpos, count)
+    if tracker.recording:
+        tracker.work("compact_add", *roofline.compact_add_cost(l_next, l_next, 0))
     if key.device.type == "cpu":
         return compact_add_plain(key, pt, srcpos, count)
     lib = library()
@@ -368,6 +377,16 @@ def compact_add(key, pt, srcpos, count):
     return new_key, out
 
 
+def _record_horner(shapes) -> None:
+    """One launch's work: every chain's (``roofline.horner_cost``), and the
+    longest chain's one-thread time as its floor (the chains run side by
+    side, each on its own lanes)."""
+    costs = [roofline.horner_cost(*shape) for shape in shapes]
+    floor_ms = max(roofline.one_thread_ms(roofline.horner_chain_ops(windows, c))
+                   for _, windows, c in shapes)
+    tracker.work("horner", sum(b for b, _ in costs), sum(o for _, o in costs), floor_ms * 1e6)
+
+
 def horner(per_window, c: int):
     """``horner_plain``'s combine; on the card one launch, a chain a segment."""
     _check_windows(per_window, c)
@@ -380,6 +399,8 @@ def horner_groups(groups):
     one launch, a block of 8 cooperating lanes a chain."""
     shapes = _check_groups(groups)
     device = groups[0][0][0].device
+    if tracker.recording:
+        _record_horner(shapes)
     if device.type == "cpu":
         return horner_groups_plain(groups)
     lib = library()

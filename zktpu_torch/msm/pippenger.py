@@ -44,6 +44,7 @@ import torch
 
 from ..curve import device as dc
 from ..field import torch_backend as fb
+from ..utils import tracker
 from . import kernels as mk
 
 #: bytes the sort and the first compaction round of one window group may hold.
@@ -183,6 +184,8 @@ def _bucket_pipeline_staged(points, abs_g, sgn_g, nbuck: int):
         # a group takes at least one round, whose width does not depend on the
         # data: its scan gives the longest run as well
         srcpos, count, longest = mk.run_scan(skey, sizes[0] if sizes else skey.shape[0])
+        if tracker.recording:
+            tracker.fetch("pippenger.longest", longest.element_size())
         rounds_needed = math.ceil(math.log2(max(2, int(longest.item()))))
         sizes = sizes[:rounds_needed]
         sizes += [sizes[-1] if sizes else skey.shape[0]] * (rounds_needed - len(sizes))

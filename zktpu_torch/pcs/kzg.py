@@ -30,6 +30,11 @@ once-collapsed basis in one dispatch, which its compiler makes the cheap form;
 that is n * 2^(n-1) scalar-point pairs an opening.) The two openings of a GKR
 input proof share each step's basis: one batched MSM of two segments a step.
 
+With ``utils.tracker`` recording, ``setup`` opens a ``kzg.srs`` span (inside
+it ``kzg.srs.eq``, ``kzg.srs.comb``, ``kzg.srs.g2``), ``open`` a ``kzg.open``,
+``commit`` a ``kzg.commit_msm`` and a ``kzg.unpack``, and the quotient path a
+``kzg.quotients`` an opening, one ``kzg.quotient_msms`` and a ``kzg.unpack``.
+
 Under an active mesh (``parallel.context.use_mesh``) the commitment MSM runs
 point-sharded (``parallel.mesh.msm_pippenger_sharded``) and each quotient step
 segment-sharded (``msm_pippenger_multi_sharded``), wherever each slot gets at
@@ -53,6 +58,7 @@ from ..msm.pippenger import msm_pippenger, msm_pippenger_multi, msm_pippenger_mu
 from ..parallel import context as pctx
 from ..parallel import mesh as pm
 from ..poly.multilinear import MultilinearPoly, tensor_op
+from ..utils import tracker
 
 FR = BLS12_381_FR
 
@@ -98,9 +104,13 @@ class KZG:
         if len(taus) != num_vars:
             raise ValueError("invalid taus or polynomials")
         ctx = fb.get_ctx(FR, device)
-        scalars = fk.from_mont(ctx, eq_table_device(taus, ctx.device))  # canonical
-        basis = generator_comb_mul(scalars)
-        g2_taus = [hc.multiply(hc.G2_GEN, t) for t in taus]
+        with tracker.span("kzg.srs"):
+            with tracker.span("kzg.srs.eq"):
+                scalars = fk.from_mont(ctx, eq_table_device(taus, ctx.device))  # canonical
+            with tracker.span("kzg.srs.comb"):
+                basis = generator_comb_mul(scalars)
+            with tracker.span("kzg.srs.g2"):
+                g2_taus = [hc.multiply(hc.G2_GEN, t) for t in taus]
         return cls(basis, g2_taus, num_vars)
 
     @classmethod
@@ -121,13 +131,15 @@ class KZG:
         """Pippenger MSM of the evaluation table against the Lagrange basis,
         point-sharded under an active mesh whose slots it gives enough rows."""
         self._check_poly(poly)
-        scalars = fk.from_mont(poly.ctx, poly.table)
-        mesh = pctx.current_mesh()
-        if mesh is not None and pctx.shardable(scalars.shape[0], mesh):
-            jac = pm.msm_pippenger_sharded(mesh, self.g1_lagrange_basis, scalars)
-        else:
-            jac = msm_pippenger(self.g1_lagrange_basis, scalars)
-        return dc.unpack_points(tuple(t[None] for t in jac))[0]
+        with tracker.span("kzg.commit_msm"):
+            scalars = fk.from_mont(poly.ctx, poly.table)
+            mesh = pctx.current_mesh()
+            if mesh is not None and pctx.shardable(scalars.shape[0], mesh):
+                jac = pm.msm_pippenger_sharded(mesh, self.g1_lagrange_basis, scalars)
+            else:
+                jac = msm_pippenger(self.g1_lagrange_basis, scalars)
+        with tracker.span("kzg.unpack"):
+            return dc.unpack_points(tuple(t[None] for t in jac))[0]
 
     def collapsed_bases(self, upto: int | None = None) -> list:
         """collapsed_bases()[k]: the basis folded k+1 times -- the commitment
@@ -147,7 +159,8 @@ class KZG:
         return chain
 
     def open(self, opening_values: list[int], poly: MultilinearPoly) -> int:
-        return poly.evaluate_int(list(opening_values))
+        with tracker.span("kzg.open"):
+            return poly.evaluate_int(list(opening_values))
 
     def _quotients(self, opened_value: int, opening_values: list[int],
                    poly: MultilinearPoly) -> list:
@@ -157,15 +170,16 @@ class KZG:
         if len(opening_values) != self.num_vars:
             raise ValueError("invalid number of opening values")
         ctx = poly.ctx
-        table = fb.sub(ctx, poly.table, poly.encode_scalar(opened_value % FR.modulus))
-        values = poly.encode_scalar([v % FR.modulus for v in opening_values])
-        quotients = []
-        for k in range(self.num_vars):
-            half = table.shape[0] // 2
-            quotient = fb.sub(ctx, table[half:], table[:half])  # f|x0=1 - f|x0=0
-            quotients.append(fk.from_mont(ctx, quotient.contiguous()))
-            # remainder: fold variable 0 at the opening value
-            table = fk.fold(ctx, table, values[k])
+        with tracker.span("kzg.quotients"):
+            table = fb.sub(ctx, poly.table, poly.encode_scalar(opened_value % FR.modulus))
+            values = poly.encode_scalar([v % FR.modulus for v in opening_values])
+            quotients = []
+            for k in range(self.num_vars):
+                half = table.shape[0] // 2
+                quotient = fb.sub(ctx, table[half:], table[:half])  # f|x0=1 - f|x0=0
+                quotients.append(fk.from_mont(ctx, quotient.contiguous()))
+                # remainder: fold variable 0 at the opening value
+                table = fk.fold(ctx, table, values[k])
         return quotients
 
     def _commit_quotients(self, *openings) -> list:
@@ -174,20 +188,22 @@ class KZG:
         the n steps' window combines run in one launch, and under an active
         mesh a step whose S segments of 2^(n-1-k) entries give its slots enough
         rows is segment-sharded. Returns S lists of n host points."""
-        bases = self.collapsed_bases()
-        mesh = pctx.current_mesh()
-        stacked = [torch.stack([q[k] for q in openings]) for k in range(self.num_vars)]
-        if mesh is None:
-            steps = msm_pippenger_multi_batches(list(zip(bases, stacked)))
-        else:
-            steps = [pm.msm_pippenger_multi_sharded(mesh, base, batch)
-                     if pctx.shardable(batch.shape[0] * batch.shape[1], mesh)
-                     else msm_pippenger_multi(base, batch)
-                     for base, batch in zip(bases, stacked)]
+        with tracker.span("kzg.quotient_msms"):
+            bases = self.collapsed_bases()
+            mesh = pctx.current_mesh()
+            stacked = [torch.stack([q[k] for q in openings]) for k in range(self.num_vars)]
+            if mesh is None:
+                steps = msm_pippenger_multi_batches(list(zip(bases, stacked)))
+            else:
+                steps = [pm.msm_pippenger_multi_sharded(mesh, base, batch)
+                         if pctx.shardable(batch.shape[0] * batch.shape[1], mesh)
+                         else msm_pippenger_multi(base, batch)
+                         for base, batch in zip(bases, stacked)]
         # (n, S, 12) -> host points, opening by opening
-        flat = dc.unpack_points(
-            tuple(torch.stack([s[i] for s in steps], dim=1).contiguous() for i in range(3))
-        )
+        with tracker.span("kzg.unpack"):
+            flat = dc.unpack_points(
+                tuple(torch.stack([s[i] for s in steps], dim=1).contiguous() for i in range(3))
+            )
         n = self.num_vars
         return [flat[s * n: (s + 1) * n] for s in range(len(openings))]
 

@@ -102,8 +102,10 @@ class MultilinearPoly:
 
     @classmethod
     def from_ints(cls, ctx: FieldCtx, values) -> "MultilinearPoly":
-        canonical = ctx.pack(list(values))
-        poly = cls(ctx, fk.to_mont(ctx, ctx.to_device(canonical)))
+        with tracker.span("field.pack"):
+            canonical = ctx.pack(list(values))
+        with tracker.span("field.upload"):
+            poly = cls(ctx, fk.to_mont(ctx, ctx.to_device(canonical)))
         # host-constructed tables keep their canonical words so transcript
         # absorption never pulls the table back across the device boundary
         poly._canonical_cache = canonical

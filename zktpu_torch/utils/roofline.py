@@ -12,8 +12,7 @@ The counterpart of the JAX package's ``utils/roofline.py``, for the card:
   * ``bound``: the least time the card could take for such work, the larger of
     bytes over the memory rate and operations over the integer rate;
   * ``time_events`` / ``measure``: CUDA-event timing, and a ``KernelProfile``
-    of achieved rates against the bound;
-  * ``trace``: ``torch.profiler`` around a block, written as a Chrome trace.
+    of achieved rates against the bound.
 
 Operation counts: a 32x32->64 multiply-accumulate counts two (its low and high
 halves); a Montgomery product 2(2W^2 + W) (272 at W = 8, 600 at W = 12), a
@@ -23,7 +22,6 @@ modular additions and subtractions are not counted, nor products by w^0 = 1.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import statistics
 
@@ -298,6 +296,28 @@ def gkr_phase_tail_cost(size: int, fold: bool):
     return nbytes, ops
 
 
+def gkr_phase_cost(size: int, ones: bool):
+    """The least work of a whole fused GKR phase on a (2, 2, size, W) stack
+    at W = 8, however ``TAIL_MAX`` splits it into launches: (bytes, 32-bit
+    multiply-adds, floor ms). Bytes: the stack read once, each round's three
+    coefficients and sponge state written once. Operations: each round's fused
+    step (``gkr_step_cost``) and ``round_step`` (``round_step_cost``; the first
+    round priced with no pending tail), less, where the stack's [1, 1] table
+    is phase 1's constant ones (``ones``), the products on it: its fold and the
+    three of each sum index. Floor: each round's one-warp ``round_step`` chain
+    (``one_thread_ms``), since each round waits on the last one's challenge."""
+    elem = elem_bytes(8)
+    product = cios_lane_ops(8)
+    rounds = gkr_tail_sizes(size, False)
+    ops = 0
+    for k, (n, fold) in enumerate(rounds):
+        ops += gkr_step_cost(n, fold)[1] + round_step_cost(3, 4 if fold else 0, first=k == 0)[1]
+        if ones:
+            ops -= (n // 2 + 3 * (n // 4) if fold else 3 * (n // 2)) * product
+    nbytes = 4 * size * elem + len(rounds) * (3 * elem + _STATE_BYTES)
+    return nbytes, ops, len(rounds) * one_thread_ms(round_step_cost(3)[1])
+
+
 #: the two fused GKR phase kernels by name: (stack entries, folds first) -> cost
 GKR_PHASE_COSTS = {"gkr_big_round": gkr_big_round_cost, "gkr_phase_tail": gkr_phase_tail_cost}
 
@@ -470,18 +490,3 @@ def measure(name: str, fn, *args, bytes_accessed: int, lane_ops: int, iters: int
     peaks = chip_peaks()
     ms = time_events(lambda: fn(*args, **kwargs), iters, flush)
     return KernelProfile(name, ms * 1e-3, bytes_accessed, lane_ops, peaks)
-
-
-@contextlib.contextmanager
-def trace(log_dir: str):
-    """``torch.profiler`` (host and card) around a block, written into
-    ``log_dir`` as a Chrome trace: ``with roofline.trace("traces/run"): run()``.
-    Raises without a card."""
-    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
-
-    if not torch.cuda.is_available():
-        raise RuntimeError("trace: no CUDA device")
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 on_trace_ready=tensorboard_trace_handler(log_dir)) as prof:
-        yield prof
-        torch.cuda.synchronize()
