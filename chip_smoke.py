@@ -157,6 +157,12 @@ them), or the script fails. Last,
      and 2) beside the parent's launches for the same work (``fold``,
      ``gkr_round`` with its ``finish_rows``, ``round_step``, a round), its
      plain version and its bound.
+ 20. the GKR layer-table kernels: ``gkr_wiring``, ``gkr_phase1_stack`` and
+     ``gkr_phase2_stack`` against their plain versions (the eager chains they
+     replace) at every layer size of the 2^20-input walk, 2^0 to 2^19 gates,
+     mismatched words 0; each one's time at 2^19 gates beside its plain
+     version and its bound (bytes), and the host time of queueing a layer's
+     tables both ways.
 
 The bounds are ``zktpu_torch/utils/roofline.py``'s, at the peaks it lists for
 the card (it raises on a card it does not list). Any failed comparison exits
@@ -199,6 +205,7 @@ from zktpu_torch.gkr import fused_lazy
 from zktpu_torch.gkr import kernels as gk
 from zktpu_torch.gkr import lazy as gkr_lazy
 from zktpu_torch.gkr import protocol as gkr
+from zktpu_torch.gkr import tables as gt
 from zktpu_torch.gkr.circuit import ADD, MUL, Circuit
 from zktpu_torch.hash import keccak as hk
 from zktpu_torch.hash import keccak_device as kd
@@ -327,7 +334,7 @@ MSM_KERNEL_SOURCE = "zktpu_torch/csrc/msm_kernels.cu"
 GKR_PHASE_KERNEL_SOURCE = "zktpu_torch/csrc/gkr_phase_kernels.cu"
 #: the kernel sources, one nvcc each, all started together
 CUDA_STEMS = ("sumcheck_kernels", "point_kernels", "ntt_kernels", "transcript_kernels",
-              "msm_kernels", "gkr_phase_kernels")
+              "msm_kernels", "gkr_phase_kernels", "gkr_tables_kernels")
 #: the TPU kernel each replaces; the transcript and MSM kernels replace zktpu's
 #: device programs (XLA, not Pallas): keccak_f the permutation, round_step the
 #: round of gkr/fused_lazy.py:_big_round and of sumcheck/fused.py:_device_prove
@@ -393,20 +400,23 @@ def gkr_expected_launches(n: int) -> dict[str, int]:
     folds, canonical form, interpolation, absorb and challenge are theirs, so
     the walk's sumcheck rounds launch no gkr_round, round_step, fold, mont_mul
     or keccak_f.
+    gkr_wiring: one a layer in the prover and one in the verifier, 2n;
+    gkr_phase1_stack and gkr_phase2_stack: one a layer, n each (the layer's
+    tables, ``gkr/tables.py``).
     fold: j for each of the layer's two input evaluations; one for the output
     polynomial's evaluation, in the prover and again in the verifier.
-    mont_mul, prover: a layer makes 2 + 3 for the phase tables, 2 for the gate
-    masks, 2j for eq(r_b, .), 1 for the challenges' upload, 4(j-1) + 2 + 1 for
-    the folded wiring coefficients (3 at the output layer) and 4 for the two
-    evaluations: 6j + 11, that is 3 a round + 11; the walk adds 1 for the inputs,
-    n for the circuit, 3 for the output polynomial.
-    mont_mul, verifier: a layer makes 4(j-1) + 5 for the coefficients (5 at the
-    output layer), 4j + 1 for the two eq tables, 3 for the weights, 1 for the
-    two sums: 8j + 6; the walk adds 2 for the output polynomial.
+    mont_mul, prover: a layer makes 1 for the upload of its wiring scalars, 1
+    for the upload of phase 1's challenges and 4 for the two evaluations: 6;
+    the walk adds 1 for the inputs, n for the circuit, 3 for the output
+    polynomial.
+    mont_mul, verifier: a layer makes 1 for the upload of its wiring scalars,
+    and in the wiring evaluation 4j + 1 for the two eq tables, 3 for the
+    weights, 1 for the two sums: 4j + 6; the walk adds 2 for the output
+    polynomial.
     """
     rounds = n * (n + 1)
-    prover_mul = 3 * rounds + 11 * n + 1 + n + 3
-    verifier_mul = 4 * rounds + 6 * n + 2
+    prover_mul = 6 * n + 1 + n + 3
+    verifier_mul = 2 * rounds + 6 * n + 2
     return {
         "mont_mul": prover_mul + verifier_mul,
         "fold": rounds + 1 + 1,
@@ -417,6 +427,9 @@ def gkr_expected_launches(n: int) -> dict[str, int]:
         "keccak_f": 0,
         "gkr_big_round": gkr_big_rounds(n),
         "gkr_phase_tail": 2 * n,
+        "gkr_wiring": 2 * n,
+        "gkr_phase1_stack": n,
+        "gkr_phase2_stack": n,
     }
 
 
@@ -770,6 +783,7 @@ def phase_gkr_main_path(ctx):
     fk.reset_launches()
     tk.reset_launches()
     gk.reset_launches()
+    gt.reset_launches()
     t0 = time.time()
     proved = gkr.prove_layers(circuit, inputs)
     torch.cuda.synchronize()
@@ -778,7 +792,7 @@ def phase_gkr_main_path(ctx):
     verdict = gkr.verify_layers(proved.proof, circuit, proved.input_evals)
     torch.cuda.synchronize()
     t_verify = time.time() - t0
-    launches = {**fk.launches, **tk.launches, **gk.launches}
+    launches = {**fk.launches, **tk.launches, **gk.launches, **gt.launches}
     say(f"  first run: inputs upload {t_upload:.3f}s  circuit evaluation {t_eval:.3f}s  "
         f"prove_layers {t_prove:.3f}s (uploads and evaluates again)  verify_layers {t_verify:.3f}s")
     say(f"  launches on the GKR path: {launches}")
@@ -1229,11 +1243,12 @@ def reset_all_launches() -> None:
     tk.reset_launches()
     mk.reset_launches()
     gk.reset_launches()
+    gt.reset_launches()
 
 
 def all_launches() -> dict[str, int]:
     return {**fk.launches, **pk.launches, **nk.launches, **tk.launches, **mk.launches,
-            **gk.launches}
+            **gk.launches, **gt.launches}
 
 
 def quotient_windows(n: int) -> list[int]:
@@ -1308,7 +1323,7 @@ def phase_kzg_main_path(ctx, circuit, inputs, layers_launches):
     walk = gkr_expected_launches(n)
     check(all(launches[name] >= walk[name] for name in walk),
           "the full proof launched the layer walk's kernels less often than the walk alone")
-    for name in ("gkr_round", "round_step") + gk.KERNEL_NAMES:
+    for name in ("gkr_round", "round_step") + gk.KERNEL_NAMES + gt.KERNEL_NAMES:
         check(launches[name] == walk[name] == layers_launches[name],
               f"{name} launches differ from the layer walk's")
 
@@ -1787,7 +1802,8 @@ def profile_path(fn) -> dict:
         time.sleep(PROFILE_PAD_S)
     t_run = (end_ns - start_ns) / 1e9
     names = (fk.KERNEL_NAMES + pk.KERNEL_NAMES + nk.KERNEL_NAMES + tk.KERNEL_NAMES
-             + mk.KERNEL_NAMES + gk.KERNEL_NAMES + ("finish_rows",) + SCAN_PASSES)
+             + mk.KERNEL_NAMES + gk.KERNEL_NAMES + gt.KERNEL_NAMES + ("finish_rows",)
+             + SCAN_PASSES)
     device_ms = {name: 0.0 for name in names}
     device_n = {name: 0 for name in names}
     pattern = re.compile(r"\b(" + "|".join(names) + r")_kernel\b")
@@ -1847,8 +1863,10 @@ def check_msm_launches(path: str, p: dict) -> None:
 
 
 def check_one_launch(profiles: dict[str, dict]) -> None:
-    """halves_sums, fold_and_halves, the two transcript kernels and the two GKR
-    phase kernels are one device kernel a wrapper launch, and finish_rows runs
+    """halves_sums, fold_and_halves, the two transcript kernels, the two GKR
+    phase kernels and the three GKR table kernels are one device kernel a
+    wrapper launch (the table kernels a layer's three, the verifier's wiring a
+    layer), and finish_rows runs
     after gkr_round alone: on every profiled path the device's count of each
     kernel equals its wrapper's launches, so the sumcheck path (1 + 19
     launches, no gkr_round) runs no finish_rows. The sumcheck's transcript is a
@@ -1859,7 +1877,7 @@ def check_one_launch(profiles: dict[str, dict]) -> None:
     as ``check_msm_launches`` says, and the KZG path's window combines two
     horner launches (the commitment's, every quotient step's), with no
     point_double."""
-    one_launch = fk._ONE_LAUNCH + tk.KERNEL_NAMES + gk.KERNEL_NAMES
+    one_launch = fk._ONE_LAUNCH + tk.KERNEL_NAMES + gk.KERNEL_NAMES + gt.KERNEL_NAMES
     walk = gkr_expected_launches(GKR_NUM_VARS)
     for path, p in profiles.items():
         ran, launched = p["device_n"], p["launches"]
@@ -1872,7 +1890,7 @@ def check_one_launch(profiles: dict[str, dict]) -> None:
         check(launched["keccak_f"] == 0, f"{path} launched keccak_f")
         check(launched["round_step"] == (NUM_VARS if path == "sumcheck" else 0),
               f"{path}: {launched['round_step']} round_step launches")
-        for name in ("gkr_round",) + gk.KERNEL_NAMES:
+        for name in ("gkr_round",) + gk.KERNEL_NAMES + gt.KERNEL_NAMES:
             want = walk[name] if path.startswith("gkr") else 0
             check(launched[name] == want, f"{path}: {launched[name]} {name} launches, not {want}")
         check_msm_launches(path, p)
@@ -3079,6 +3097,131 @@ def phase_gkr_phase_kernels(gctx) -> tuple[dict[str, int], dict[str, dict]]:
     return errs, times
 
 
+# ----------------------------------------------------------------------
+# phase 20: the GKR layer-table kernels
+# ----------------------------------------------------------------------
+
+def words_differ(a, b) -> int:
+    """Mismatched 32-bit words of two equal-shape tables (all of them when the
+    shapes differ)."""
+    if a.shape != b.shape:
+        return max(a.numel(), b.numel())
+    return int((a != b).sum().item())
+
+
+def table_inputs(ctx, rng, log: int):
+    """A layer of 2^log gates, mixed types, as the walk's tables take it: the
+    wiring's (2, k, W) challenges with 0, 1 and p - 1 among them and its two
+    scales; w (2n, W); phase 1's log + 1 challenges with p - 1 and 0; w(r_b)."""
+    n, k, p = 1 << log, max(1, log), ctx.spec.modulus
+    is_add = torch.from_numpy(rng.integers(2, size=n).astype(bool)).to(ctx.device)
+    vals = [int.from_bytes(rng.bytes(40), "little") % p for _ in range(2 * k)]
+    vals[: min(3, 2 * k)] = [0, 1, p - 1][: min(3, 2 * k)]
+    challenges = gkr_lazy._encode(ctx, vals).reshape(2, k, ctx.num_words)
+    scales = gkr_lazy._encode(ctx, [int.from_bytes(rng.bytes(40), "little") % p for _ in range(2)])
+    w = random_table(ctx, rng, 2 * n)
+    r_vals = [int.from_bytes(rng.bytes(40), "little") % p for _ in range(log + 1)]
+    r_vals[-1] = p - 1
+    if log:
+        r_vals[0] = 0
+    return (n, is_add, challenges, scales, w, gkr_lazy._encode(ctx, r_vals),
+            random_table(ctx, rng, 1)[0])
+
+
+def phase_gkr_tables_kernels(gctx) -> tuple[dict[str, int], dict[str, dict]]:
+    """gkr_wiring, gkr_phase1_stack and gkr_phase2_stack against their plain
+    versions (the eager chains they replace), word for word, at every layer
+    size of the 2^GKR_NUM_VARS-input walk (2^0 to 2^(GKR_NUM_VARS - 1) gates;
+    the wiring also as the output layer's one unscaled term at 1 and 2 gates,
+    the stacks also on the plain coefficients); then each one's time at the
+    widest layer (CUDA events, L2 flushed; device us by the profiler's clock)
+    beside its plain version and its bound, and the host ms of queueing a
+    layer's three launches."""
+    t0 = time.time()
+    rng = np.random.default_rng(20)
+    errs = {name: 0 for name in gt.KERNEL_NAMES}
+    gt.reset_launches()
+    for log in range(GKR_NUM_VARS):
+        n, is_add, challenges, scales, w, r_b, wb = table_inputs(gctx, rng, log)
+        got = gt.wiring_coefs(gctx, challenges, scales, is_add, n)
+        want = gt.wiring_coefs_plain(gctx, challenges, scales, is_add, n)
+        errs["gkr_wiring"] += words_differ(got[0], want[0]) + words_differ(got[1], want[1])
+        if n <= 2:
+            one = challenges[:1, :1].contiguous()
+            out = gt.wiring_coefs(gctx, one, None, is_add, n)
+            ref = gt.wiring_coefs_plain(gctx, one, None, is_add, n)
+            errs["gkr_wiring"] += words_differ(out[0], ref[0]) + words_differ(out[1], ref[1])
+        for coef_a, coef_m in (got, want):
+            errs["gkr_phase1_stack"] += words_differ(
+                gt.phase1_stack(gctx, coef_a, coef_m, w),
+                gt.phase1_stack_plain(gctx, coef_a, coef_m, w))
+            errs["gkr_phase2_stack"] += words_differ(
+                gt.phase2_stack(gctx, coef_a, coef_m, w, r_b, wb),
+                gt.phase2_stack_plain(gctx, coef_a, coef_m, w, r_b, wb))
+        del got, want, w
+        torch.cuda.empty_cache()
+    for name in gt.KERNEL_NAMES:
+        check(errs[name] == 0, f"{name} differs from its plain version in {errs[name]} words")
+    want_launches = {"gkr_wiring": GKR_NUM_VARS + 2, "gkr_phase1_stack": 2 * GKR_NUM_VARS,
+                     "gkr_phase2_stack": 2 * GKR_NUM_VARS}
+    check(gt.launches == want_launches, f"table launches {gt.launches} != {want_launches}")
+    say(f"  gkr_wiring, gkr_phase1_stack, gkr_phase2_stack at 2^0-2^{GKR_NUM_VARS - 1} gates "
+        f"(mixed types, challenges 0, 1, p - 1 among them; the output layer's one term at 1 "
+        f"and 2 gates): mismatched words {errs}")
+
+    log = GKR_NUM_VARS - 1
+    n, is_add, challenges, scales, w, r_b, wb = table_inputs(gctx, rng, log)
+    coef_a, coef_m = gt.wiring_coefs(gctx, challenges, scales, is_add, n)
+    flush = torch.empty(256 << 20, dtype=torch.int8, device=gctx.device)
+    runs = {
+        "gkr_wiring": (lambda: gt.wiring_coefs(gctx, challenges, scales, is_add, n),
+                       lambda: gt.wiring_coefs_plain(gctx, challenges, scales, is_add, n),
+                       roofline.gkr_wiring_cost(n, 2)),
+        "gkr_phase1_stack": (lambda: gt.phase1_stack(gctx, coef_a, coef_m, w),
+                             lambda: gt.phase1_stack_plain(gctx, coef_a, coef_m, w),
+                             roofline.gkr_phase1_stack_cost(n)),
+        "gkr_phase2_stack": (lambda: gt.phase2_stack(gctx, coef_a, coef_m, w, r_b, wb),
+                             lambda: gt.phase2_stack_plain(gctx, coef_a, coef_m, w, r_b, wb),
+                             roofline.gkr_phase2_stack_cost(n)),
+    }
+    times = {}
+    for name, (fn, plain_fn, cost) in runs.items():
+        ms = time_events(fn, TIMED_RUNS, flush)
+        dev_us = device_ms(fn, name, 50) * 1e3
+        plain = time_events(plain_fn, 3, flush)
+        b = roofline.bound(*cost)
+        times[name] = {"ms": ms, "plain_ms": plain, "bound_ms": b.ms, "bound_by": b.by}
+        say(f"  {name} at 2^{log} gates: {ms:.4f} ms (CUDA events, median, L2 flushed), device "
+            f"{dev_us:.2f} us; plain (the eager chain) {plain:.3f} ms; bound {b.ms:.4f} ms by "
+            f"{b.by} ({b.ms / ms:.1%} of it)")
+
+    def layer_tables():
+        fa, fm = gt.wiring_coefs(gctx, challenges, scales, is_add, n)
+        gt.phase1_stack(gctx, fa, fm, w)
+        gt.phase2_stack(gctx, fa, fm, w, r_b, wb)
+
+    def layer_tables_plain():
+        fa, fm = gt.wiring_coefs_plain(gctx, challenges, scales, is_add, n)
+        gt.phase1_stack_plain(gctx, fa, fm, w)
+        gt.phase2_stack_plain(gctx, fa, fm, w, r_b, wb)
+
+    for label, fn in (("the kernels", layer_tables), ("the eager chains", layer_tables_plain)):
+        fn()
+        torch.cuda.synchronize()
+        host = []
+        for _ in range(5):
+            start = time.perf_counter()
+            fn()
+            host.append((time.perf_counter() - start) * 1e3)
+            torch.cuda.synchronize()
+        say(f"  a 2^{log}-gate layer's three tables by {label}: host {statistics.median(host):.3f} "
+            f"ms to queue (median of 5), {time_events(fn, 3):.3f} ms with the card's work")
+    del flush
+    torch.cuda.empty_cache()
+    say(f"  (phase 20 took {time.time() - t0:.1f}s)")
+    return errs, times
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
@@ -3235,6 +3378,10 @@ def main() -> int:
         "plain PyTorch versions (exact), and their times beside the parent's launches")
     phase_errs, phase_times = phase_gkr_phase_kernels(gctx)
     errs.update(phase_errs)
+
+    say("[20] the GKR layer-table kernels, gkr_wiring, gkr_phase1_stack and gkr_phase2_stack, "
+        "against their plain PyTorch versions (exact), and their times beside the eager chains")
+    phase_gkr_tables_kernels(gctx)
 
     kernels = []
     for name in (fk.KERNEL_NAMES + pk.KERNEL_NAMES + nk.KERNEL_NAMES + tk.KERNEL_NAMES

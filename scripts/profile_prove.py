@@ -53,6 +53,7 @@ from zktpu_torch.field.spec import BLS12_381_FR, BN254_FQ  # noqa: E402
 from zktpu_torch.gkr import fused_lazy  # noqa: E402
 from zktpu_torch.gkr import lazy as gkr_lazy  # noqa: E402
 from zktpu_torch.gkr import protocol as gkr  # noqa: E402
+from zktpu_torch.gkr import tables as gkr_tables  # noqa: E402
 from zktpu_torch.gkr.circuit import Circuit  # noqa: E402
 from zktpu_torch.hash import keccak_device as kd  # noqa: E402
 from zktpu_torch.field import kernels as fk  # noqa: E402
@@ -139,21 +140,17 @@ def gkr_layer_stages(ctx, w_poly, layer) -> None:
     ``gkr_prove_lazy_fused``) and of its two input evaluations, one by one."""
     k = w_poly.num_vars - 1
     point = list(range(3, 3 + k))
-    fbc = timed("wiring coefficients (lazy_folded_fbc: 2 eq tables, masks)",
+    fbc = timed("wiring coefficients (lazy_folded_fbc: one upload, a gkr_wiring launch)",
                 lambda: gkr_lazy.lazy_folded_fbc(ctx, layer, w_poly, point, point[::-1], 5, 7))
     transcript = Transcript(ctx.spec)
     transcript.append_field_elements([1])
-    gh = timed("phase-1 tables G, H",
-               lambda: gkr_lazy._phase1_tables_kernel(ctx, fbc.coef_a, fbc.coef_m, fbc.w_table))
-    ones = ctx.one_mont.expand(fbc.w_table.shape)
-    tables1 = timed("phase-1 stack [[F, G], [H, 1]]", lambda: torch.stack(
-        [torch.stack([fbc.w_table, gh[0]]), torch.stack([gh[1], ones])]))
+    tables1 = timed("phase-1 stack [[F, G], [H, 1]] (a gkr_phase1_stack launch)",
+                    lambda: gkr_tables.phase1_stack(ctx, fbc.coef_a, fbc.coef_m, fbc.w_table))
     _, challenges, wb = timed(f"phase 1: {k + 1} rounds on the device + fetch + host replay",
                               lambda: fused_lazy._run_phase(ctx, transcript, tables1, ones=True))
-    eqb = timed("eq(r_b, .) table",
-                lambda: gkr_lazy.eq_tensor(ctx, gkr_lazy._encode(ctx, challenges)))
-    tables2 = timed("phase-2 stack", lambda: gkr_lazy._phase2_tables_kernel(
-        ctx, fbc.coef_a, fbc.coef_m, fbc.w_table, eqb, wb))
+    tables2 = timed("phase-2 stack (r_b's upload, a gkr_phase2_stack launch)",
+                    lambda: gkr_tables.phase2_stack(ctx, fbc.coef_a, fbc.coef_m, fbc.w_table,
+                                                    gkr_lazy._encode(ctx, challenges), wb))
     timed(f"phase 2: {k + 1} rounds on the device + fetch + host replay",
           lambda: fused_lazy._run_phase(ctx, transcript, tables2))
     timed("the two input evaluations w(r_b), w(r_c)",

@@ -30,6 +30,7 @@ from zktpu_torch.field import torch_backend as fb
 from zktpu_torch.field.host import vec_to_bytes
 from zktpu_torch.field.spec import BLS12_381_FR
 from zktpu_torch.gkr import fused_lazy, lazy
+from zktpu_torch.gkr import tables as gt
 from zktpu_torch.gkr.circuit import ADD, MUL, Layer
 from zktpu_torch.hash import keccak_device as kd
 from zktpu_torch.hash import kernels as tk
@@ -182,10 +183,10 @@ def test_lazy_coefficients_and_phase_tables_equal_zktpu(layer_case):
     ops, fbc, jfbc, _ = layer_case
     assert _same(fbc.coef_a, jfbc.coef_a) and _same(fbc.coef_m, jfbc.coef_m)
     assert fbc.num_rounds == jfbc.num_rounds == 8 and fbc.get_degree() == 2
-    add_mask, mul_mask = lazy._gate_masks(ctx, Layer(ops))
+    add_mask, mul_mask = gt.gate_masks_plain(ctx, Layer(ops).add_mask(ctx.device))
     jadd, jmul = jlazy._gate_masks(jctx, jcircuit.Layer(ops))
     assert _same(add_mask, jadd) and _same(mul_mask, jmul)
-    gh = lazy._phase1_tables_kernel(ctx, fbc.coef_a, fbc.coef_m, fbc.w_table)
+    gh = gt.phase1_tables_plain(ctx, fbc.coef_a, fbc.coef_m, fbc.w_table)
     jgh = jlazy._phase1_tables_kernel(jctx, jfbc.coef_a, jfbc.coef_m, jfbc.w_table)
     assert _same(gh, jgh)
     assert not gh[:, 1::2].any()  # the odd entries of G and H are zero
@@ -194,7 +195,7 @@ def test_lazy_coefficients_and_phase_tables_equal_zktpu(layer_case):
     assert _same(lazy._phase1_round_kernel(ctx, tables), jlazy._phase1_round_kernel(jctx, jtables))
     eqb, jeqb = _mont(list(range(1, 17)))
     wb, jwb = fbc.w_table[3], jfbc.w_table[3]
-    t2 = lazy._phase2_tables_kernel(ctx, fbc.coef_a, fbc.coef_m, fbc.w_table, eqb, wb)
+    t2 = gt.phase2_tables_plain(ctx, fbc.coef_a, fbc.coef_m, fbc.w_table, eqb, wb)
     jt2 = jlazy._phase2_tables_kernel(jctx, jfbc.coef_a, jfbc.coef_m, jfbc.w_table, jeqb, jwb)
     assert t2.is_contiguous() and tuple(t2.shape) == (2, 2, 16, 8)
     assert _same(t2, jt2)

@@ -46,7 +46,7 @@ def layer_eval_kernel(ctx: FieldCtx, table, is_add_mask):
 
 
 class Layer:
-    __slots__ = ("ops",)
+    __slots__ = ("ops", "_add_masks")
 
     def __init__(self, ops: list[str]):
         if not ops:
@@ -54,6 +54,7 @@ class Layer:
         if any(op not in (ADD, MUL) for op in ops):
             raise ValueError("ops must be 'add' or 'mul'")
         self.ops = list(ops)
+        self._add_masks: dict[torch.device, torch.Tensor] = {}
 
     @property
     def n_gates(self) -> int:
@@ -88,6 +89,17 @@ class Layer:
         """Per-gate boolean mask on the host: True where the gate adds."""
         return np.asarray([op == ADD for op in self.ops])
 
+    def add_mask(self, device) -> torch.Tensor:
+        """``is_add`` as a bool tensor on ``device``: built at the first call
+        for a device and kept, so a prover's tables read the gates' types
+        without a pass over ``ops``."""
+        key = torch.device(device)
+        mask = self._add_masks.get(key)
+        if mask is None:
+            mask = torch.from_numpy(self.is_add()).to(key)
+            self._add_masks[key] = mask
+        return mask
+
     def get_add_mul_i(self, ctx: FieldCtx, op: str) -> MultilinearPoly:
         """One-hot wiring-predicate MLE for gates with operation ``op``."""
         size = 1 << self.bits_for_gates()
@@ -105,9 +117,7 @@ class Circuit:
     def __init__(self, ctx: FieldCtx, structure: list[list[str]]):
         self.ctx = ctx
         self.layers = [Layer(ops) for ops in structure]
-        self._masks = [
-            torch.from_numpy(layer.is_add()).to(ctx.device) for layer in self.layers
-        ]
+        self._masks = [layer.add_mask(ctx.device) for layer in self.layers]
 
     @property
     def num_layers(self) -> int:

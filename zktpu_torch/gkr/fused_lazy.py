@@ -7,8 +7,8 @@ device, so the host uploads the sponge state and its pending tail (one copy),
 queues every round, and fetches the phase's coefficient rows once:
 
   * the phase's composed tables live as one contiguous (2, 2, size, W) product
-    stack: [[F, G], [H, 1]] for phase 1 and the ``_phase2_tables_kernel`` layout
-    for phase 2;
+    stack: [[F, G], [H, 1]] for phase 1 and [[A2, wb + w], [M2 wb, w]] for
+    phase 2, each one launch (``gkr/tables.py``);
   * a round folds the stack at the last round's challenge, sums the folded
     stack's three lazy rows y_0, y_1, y_2, takes them to canonical coefficients
     (c0 = y0, c2 = (y0 - 2 y1 + y2)/2, c1 = y1 - y0 - c2), absorbs digest || the
@@ -38,7 +38,7 @@ appends/squeezes (a few Keccak blocks), so the surrounding GKR protocol code
 (alpha/beta folds, o_1/o_2 absorbs) continues unchanged.
 
 With ``utils.tracker`` recording, a layer's host time splits into spans:
-``gkr.tables`` (the phase stacks, and phase 2's eq table), ``gkr.phase``
+``gkr.tables`` (the phase stacks' launches and phase 2's upload), ``gkr.phase``
 (queueing a phase's launches), ``gkr.fetch`` (waiting on its coefficient rows)
 and ``gkr.replay`` (the host transcript); each phase records its least work
 once (``roofline.gkr_phase_cost``), however ``TAIL_MAX`` splits it.
@@ -58,6 +58,7 @@ from ..transcript import Transcript
 from ..utils import roofline, tracker
 from . import kernels as gk
 from . import lazy as lazy_mod
+from . import tables as gt
 
 #: coefficients of a round polynomial before the trim
 NUM_COEFFS = 3
@@ -149,19 +150,13 @@ def gkr_prove_lazy_fused(claimed_sum: int, fbc: "lazy_mod.LazyFbc",
 
     # ---- phase 1: [[F, G], [H, 1]] ---------------------------------------
     with tracker.span("gkr.tables"):
-        gh = lazy_mod._phase1_tables_kernel(ctx, fbc.coef_a, fbc.coef_m, fbc.w_table)
-        ones = ctx.one_mont.expand(fbc.w_table.shape)
-        tables1 = torch.stack([
-            torch.stack([fbc.w_table, gh[0]]), torch.stack([gh[1], ones])
-        ])
+        tables1 = gt.phase1_stack(ctx, fbc.coef_a, fbc.coef_m, fbc.w_table)
     polys1, challenges1, wb = _run_phase(ctx, transcript, tables1, ones=True)
 
     # ---- phase 2 ----------------------------------------------------------
     with tracker.span("gkr.tables"):
-        eqb = lazy_mod.eq_tensor(ctx, _encode(ctx, challenges1))
-        tables2 = lazy_mod._phase2_tables_kernel(
-            ctx, fbc.coef_a, fbc.coef_m, fbc.w_table, eqb, wb
-        )
+        tables2 = gt.phase2_stack(ctx, fbc.coef_a, fbc.coef_m, fbc.w_table,
+                                  _encode(ctx, challenges1), wb)
     polys2, challenges2, _ = _run_phase(ctx, transcript, tables2)
 
     if not len(polys1) == len(polys2) == nb:

@@ -26,10 +26,10 @@ is exact field arithmetic, so each round polynomial is the *identical field
 element sequence* the dense-tensor prover emits -- proof bytes match bit for
 bit. Total prover work per layer drops from O(|w|^2) to O(|w|) field ops.
 
-On the device: every whole-table product goes through the ``mont_mul`` kernel
-(table x table, or table x one element), every fold through the ``fold``
-kernel, and phase 2's round evaluations through the ``gkr_round`` kernel.
-Modular additions, selects and interleaves are plain tensor operations.
+On the device: the wiring coefficients and both phase stacks are one kernel
+launch each (``gkr/tables.py``), every fold goes through the ``fold`` kernel,
+and phase 2's round evaluations through the ``gkr_round`` kernel. The
+verifier's wiring evaluation takes whole eq tables (``eq_tensor``).
 """
 
 from __future__ import annotations
@@ -48,66 +48,9 @@ from ..sumcheck.protocol import (
     fold_tables_kernel,
 )
 from ..transcript import Transcript
+from . import tables as gt
 from .circuit import Layer
-
-
-def _interleave(first, second):
-    """(n, W), (n, W) -> (2n, W): first at the even rows, second at the odd."""
-    return torch.stack([first, second], dim=1).reshape(2 * first.shape[0], first.shape[1])
-
-
-def eq_tensor(ctx: FieldCtx, values_mont):
-    """eq(r, x) table over all 2^k MSB-first hypercube vertices x.
-
-    Chain of kron products of (1 - r_i, r_i); challenge 0 lands on the most
-    significant index bit, matching the reference's bit packing
-    (gkr_circuit.rs:67-104) and ``generate_bhc`` enumeration (kzg.rs:171-181).
-    ``values_mont``: a list of (W,) or a (k, W) tensor of Montgomery words. Each
-    doubling is two ``mont_mul`` launches (table x one element) and an
-    interleave.
-    """
-    table = ctx.one_mont[None]
-    if len(values_mont) == 0:
-        return table
-    rs = values_mont if isinstance(values_mont, torch.Tensor) else torch.stack(list(values_mont))
-    one_minus = fb.sub(ctx, ctx.one_mont, rs)
-    for k in range(rs.shape[0]):
-        table = _interleave(
-            fk.mont_mul(ctx, table, one_minus[k]), fk.mont_mul(ctx, table, rs[k])
-        )
-    return table  # (2^k, W) Montgomery
-
-
-def _phase1_tables_kernel(ctx: FieldCtx, coef_a, coef_m, w_table):
-    """Interleaved G/H tables over b from per-gate coefficients.
-
-    coef_a/coef_m: (n, W) bound-a wiring coefficients; w_table: (2n, W).
-    Returns (2, 2n, W): [G, H] with G[2g] = coefA_g + coefM_g * w[2g+1],
-    H[2g] = coefA_g * w[2g+1], odd entries zero.
-    """
-    n = coef_a.shape[0]
-    w_odd = w_table.reshape(n, 2, ctx.num_words)[:, 1].contiguous()
-    h_even = fk.mont_mul(ctx, coef_a, w_odd)
-    g_even = fb.add(ctx, coef_a, fk.mont_mul(ctx, coef_m, w_odd))
-    zeros = torch.zeros_like(g_even)
-    return torch.stack([_interleave(g_even, zeros), _interleave(h_even, zeros)])
-
-
-def _phase2_tables_kernel(ctx: FieldCtx, coef_a, coef_m, w_table, eqb, wb):
-    """Phase-2 SumPoly tables over c once b is bound to r_b.
-
-    Returns a contiguous (2, 2, 2n, W) stack in ``gkr_round`` layout:
-    [[A2, wb + w], [M2 * wb, w]] with A2[2g+1] = coefA_g * eq(r_b, 2g).
-    """
-    n = coef_a.shape[0]
-    eqb_even = eqb.reshape(n, 2, ctx.num_words)[:, 0].contiguous()
-    a2_odd = fk.mont_mul(ctx, coef_a, eqb_even)
-    m2_odd = fk.mont_mul(ctx, fk.mont_mul(ctx, coef_m, eqb_even), wb)
-    zeros = torch.zeros_like(a2_odd)
-    a2 = _interleave(zeros, a2_odd)
-    m2 = _interleave(zeros, m2_odd)
-    wb_plus_w = fb.add(ctx, w_table, wb)
-    return torch.stack([torch.stack([a2, wb_plus_w]), torch.stack([m2, w_table])])
+from .tables import eq_tensor
 
 
 def _phase1_round_kernel(ctx: FieldCtx, tables):
@@ -155,14 +98,6 @@ class LazyFbc:
         return 2
 
 
-def _gate_masks(ctx: FieldCtx, layer: Layer):
-    """Montgomery-domain 0/1 masks for add and mul gates."""
-    is_add = torch.from_numpy(layer.is_add()).to(ctx.device)[:, None]
-    add_mask = torch.where(is_add, ctx.one_mont, ctx.zero)
-    mul_mask = torch.where(is_add, ctx.zero, ctx.one_mont)
-    return add_mask, mul_mask
-
-
 def _require_pow2(layer: Layer):
     n = layer.n_gates
     if n & (n - 1):
@@ -172,33 +107,24 @@ def _require_pow2(layer: Layer):
         )
 
 
-def _masked_coefs(ctx: FieldCtx, layer: Layer, coef):
-    """Split per-gate coefficients (n, W) into (add gates', mul gates')."""
-    add_mask, mul_mask = _gate_masks(ctx, layer)
-    return fk.mont_mul(ctx, coef, add_mask), fk.mont_mul(ctx, coef, mul_mask)
-
-
 def _bound_a_coefs(ctx: FieldCtx, layer: Layer, random_challenge: int):
     """Layer-0 per-gate coefficients: eq over the 1-bit gate index at r."""
     n = layer.n_gates
     if n > 2:
         raise ValueError("output layer has more than 2 gates")
-    eq_a = eq_tensor(ctx, [_encode(ctx, random_challenge)])[:n].contiguous()
-    return _masked_coefs(ctx, layer, eq_a)
+    r = _encode(ctx, [random_challenge])
+    return gt.wiring_coefs(ctx, r.reshape(1, 1, ctx.num_words), None,
+                           layer.add_mask(ctx.device), n)
 
 
 def _folded_coefs(ctx: FieldCtx, layer: Layer, r_b: list[int], r_c: list[int],
                   alpha: int, beta: int):
-    """coef_g = alpha * eq(r_b, g) + beta * eq(r_c, g), masked per gate type."""
-    n = layer.n_gates
-    scalars = _encode(ctx, list(r_b) + list(r_c) + [alpha, beta])
+    """coef_g = alpha * eq(r_b, g) + beta * eq(r_c, g), split per gate type;
+    the challenges and alpha, beta go up in one upload."""
     k = len(r_b)
-    eq_rb = eq_tensor(ctx, scalars[:k])[:n].contiguous()
-    eq_rc = eq_tensor(ctx, scalars[k : 2 * k])[:n].contiguous()
-    folded = fb.add(
-        ctx, fk.mont_mul(ctx, eq_rb, scalars[2 * k]), fk.mont_mul(ctx, eq_rc, scalars[2 * k + 1])
-    )
-    return _masked_coefs(ctx, layer, folded)
+    scalars = _encode(ctx, list(r_b) + list(r_c) + [alpha, beta])
+    return gt.wiring_coefs(ctx, scalars[: 2 * k].reshape(2, k, ctx.num_words),
+                           scalars[2 * k :], layer.add_mask(ctx.device), layer.n_gates)
 
 
 def lazy_fbc(ctx: FieldCtx, random_challenge: int, layer: Layer,
@@ -242,16 +168,16 @@ def gkr_prove_lazy(claimed_sum: int, fbc: LazyFbc,
         return fold_tables_kernel(ctx, tables, _encode(ctx, r))
 
     # ---- phase 1: bind b ------------------------------------------------
-    gh = _phase1_tables_kernel(ctx, fbc.coef_a, fbc.coef_m, fbc.w_table)
-    tables = torch.cat([fbc.w_table[None], gh])  # (3, 2n, W): F, G, H
+    stack = gt.phase1_stack(ctx, fbc.coef_a, fbc.coef_m, fbc.w_table)
+    tables = stack.reshape(4, *fbc.w_table.shape)[:3]  # (3, 2n, W): F, G, H
     for _ in range(nb):
         tables = finish_round(_to_ints(ctx, _phase1_round_kernel(ctx, tables)), tables)
 
     wb = tables[0, 0]  # w(r_b)
 
     # ---- phase 2: bind c ------------------------------------------------
-    eqb = eq_tensor(ctx, _encode(ctx, random_challenges))
-    tables2 = _phase2_tables_kernel(ctx, fbc.coef_a, fbc.coef_m, fbc.w_table, eqb, wb)
+    tables2 = gt.phase2_stack(ctx, fbc.coef_a, fbc.coef_m, fbc.w_table,
+                              _encode(ctx, random_challenges), wb)
     for _ in range(nb):
         ys = fk.lazy_rows_to_ints(ctx, fk.gkr_round(ctx, tables2))
         tables2 = finish_round(ys, tables2)

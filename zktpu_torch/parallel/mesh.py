@@ -48,6 +48,7 @@ from ..field import kernels as fk
 from ..field import torch_backend as fb
 from ..field.torch_backend import FieldCtx
 from ..gkr import lazy as lazy_mod
+from ..gkr import tables as gt
 from ..msm import pippenger as pp
 from ..ntt import ntt as tn
 from ..ntt import ntt_kernels as nk
@@ -279,14 +280,11 @@ def gkr_sumcheck_lazy_sharded(claimed_sum: int, fbc: lazy_mod.LazyFbc, transcrip
 
     # phase 1: bind b, tables [[F, G], [H, 1]]
     nb = fbc.num_rounds // 2
-    gh = lazy_mod._phase1_tables_kernel(ctx, fbc.coef_a, fbc.coef_m, fbc.w_table)
-    ones = ctx.one_mont.expand(fbc.w_table.shape)
-    tables1 = torch.stack([torch.stack([fbc.w_table, gh[0]]), torch.stack([gh[1], ones])])
-    wb = run_phase(tables1)[0, 0, 0]  # the folded F: w(r_b)
+    wb = run_phase(gt.phase1_stack(ctx, fbc.coef_a, fbc.coef_m, fbc.w_table))[0, 0, 0]  # w(r_b)
 
     # phase 2: bind c
-    eqb = lazy_mod.eq_tensor(ctx, sc._encode(ctx, random_challenges[:nb]))
-    run_phase(lazy_mod._phase2_tables_kernel(ctx, fbc.coef_a, fbc.coef_m, fbc.w_table, eqb, wb))
+    run_phase(gt.phase2_stack(ctx, fbc.coef_a, fbc.coef_m, fbc.w_table,
+                              sc._encode(ctx, random_challenges[:nb]), wb))
     return sc.GkrSumcheckProof(proof_polynomials, claimed_sum, random_challenges)
 
 

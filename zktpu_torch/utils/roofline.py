@@ -4,7 +4,7 @@ The counterpart of the JAX package's ``utils/roofline.py``, for the card:
 
   * ``PEAKS`` / ``chip_peaks``: the card's memory rate and 32-bit integer
     multiply-add rate, by ``torch.cuda.get_device_name``;
-  * cost models of the sixteen kernels: (bytes moved, 32-bit multiply-adds,
+  * cost models of the nineteen kernels: (bytes moved, 32-bit multiply-adds,
     or for Keccak 32-bit logical instructions and funnel shifts) of one call,
     each input read once and each output written once; ``one_thread_ms``, the
     least time of a one-thread kernel's operations (its warp issues one
@@ -320,6 +320,34 @@ def gkr_phase_cost(size: int, ones: bool):
 
 #: the two fused GKR phase kernels by name: (stack entries, folds first) -> cost
 GKR_PHASE_COSTS = {"gkr_big_round": gkr_big_round_cost, "gkr_phase_tail": gkr_phase_tail_cost}
+
+
+def gkr_wiring_cost(gates: int, terms: int):
+    """A layer's wiring coefficients: the gate mask read, coef_a and coef_m
+    written; a product a gate and term (its eq entry's last factor, the scale
+    folded into the block's seed)."""
+    return gates + 2 * gates * elem_bytes(8), terms * gates * cios_lane_ops(8)
+
+
+def gkr_phase1_stack_cost(gates: int):
+    """A layer's phase-1 stack: w (2n entries) and both coefficients read, the
+    four tables of 2n entries written; two products a gate."""
+    return (4 * gates + 8 * gates) * elem_bytes(8), 2 * gates * cios_lane_ops(8)
+
+
+def gkr_phase2_stack_cost(gates: int):
+    """A layer's phase-2 stack: as the phase-1 stack's bytes; four products a
+    gate (eq(r, 2g)'s last factor, A2, and M2's two)."""
+    return (4 * gates + 8 * gates) * elem_bytes(8), 4 * gates * cios_lane_ops(8)
+
+
+#: the three GKR layer-table kernels (``gkr/tables.py``) by name: gates -> cost
+#: (the wiring's also takes its terms)
+GKR_TABLES_COSTS = {
+    "gkr_wiring": gkr_wiring_cost,
+    "gkr_phase1_stack": gkr_phase1_stack_cost,
+    "gkr_phase2_stack": gkr_phase2_stack_cost,
+}
 
 
 def gkr_phase_floor_ms(name: str, size: int, fold: bool) -> float:
