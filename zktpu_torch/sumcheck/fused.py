@@ -26,6 +26,12 @@ squeeze the buffered bytes are digest(32) || half_sums(64) = 96 bytes -- one
 padded Keccak block -- so every round costs exactly one keccak-f[1600], inside
 its ``round_step``. Round 0 continues the host-absorbed prefix (table bytes + claimed sum,
 hashed at native speed by the C backend) from its exported sponge state.
+
+Under ``tracker.record(True)`` a proof records four spans, none inside another:
+``sumcheck.claim`` (the canonical table and its sum), ``sumcheck.absorb`` (the
+transcript prefix), ``sumcheck.rounds`` (the rounds queued) and
+``sumcheck.fetch`` (the one wait, for the round rows); and one
+``sumcheck_round`` work record a round, priced by ``utils.roofline``.
 """
 
 from __future__ import annotations
@@ -39,6 +45,7 @@ from ..field.torch_backend import FieldCtx
 from ..hash import keccak_device as kd
 from ..hash import kernels as tk
 from ..poly.multilinear import MultilinearPoly
+from ..utils import roofline, tracker
 from .protocol import Proof
 
 #: field elements absorbed per round: the two half-sums
@@ -60,6 +67,21 @@ _canonicalize_rows = tk.canonical_rows_plain
 _digest_to_mont = tk.digest_to_mont_plain
 
 
+def _round_work(entries: int, num_words: int, tail_lanes: int | None) -> None:
+    """Record the least work of one round on a table of ``entries``: round 0
+    (``tail_lanes``, the uploaded tail's lanes) sums it, a later round (None)
+    folds it and sums the half; then its ``round_step``. The floor is the
+    ``round_step`` chain, since each round waits on the last one's challenge."""
+    if tail_lanes is not None:
+        nbytes, ops = roofline.halves_sums_cost(entries, num_words)
+        step = roofline.round_step_cost(ROUND_ELEMS, tail_lanes, first=True)
+    else:
+        nbytes, ops = roofline.fold_and_halves_cost(entries, num_words)
+        step = roofline.round_step_cost(ROUND_ELEMS)
+    tracker.work("sumcheck_round", nbytes + step[0], ops + step[1],
+                 roofline.one_thread_ms(step[1]) * 1e6)
+
+
 def _device_prove(ctx: FieldCtx, num_vars: int, state0, tail_lanes, table):
     """All rounds on the device, nothing fetched. ``state0`` (25,) and
     ``tail_lanes`` are host int64 lane arrays, uploaded together before the
@@ -74,6 +96,8 @@ def _device_prove(ctx: FieldCtx, num_vars: int, state0, tail_lanes, table):
                       device=ctx.device)
     r_mont = None
     for k in range(num_vars):
+        if tracker.recording:
+            _round_work(table.shape[0], ctx.num_words, tail.shape[0] if k == 0 else None)
         if k == 0:
             rows = fk.halves_sums(ctx, table)
         else:
@@ -90,18 +114,22 @@ def prove(poly: MultilinearPoly) -> Proof:
         raise ValueError("fused prover requires a 32-byte field (digest width)")
     if poly.num_vars == 0:
         raise ValueError("fused prover needs at least one variable")
-    claimed_sum = host_sum_mod_p(ctx, poly.canonical_table())
-    sponge = poly.transcript_sponge()
-    sponge.absorb(vec_to_bytes(spec, [claimed_sum]))
-    state_pairs, tail = sponge.state_lanes()
+    with tracker.span("sumcheck.claim"):
+        claimed_sum = host_sum_mod_p(ctx, poly.canonical_table())
+    with tracker.span("sumcheck.absorb"):
+        sponge = poly.transcript_sponge()
+        sponge.absorb(vec_to_bytes(spec, [claimed_sum]))
+        state_pairs, tail = sponge.state_lanes()
     if len(tail) % 8:
         raise ValueError("transcript prefix is not lane aligned")
 
-    rows = _device_prove(
-        ctx, poly.num_vars, kd.pairs_to_lanes(state_pairs), kd.bytes_to_lanes(tail),
-        poly.table,
-    )
-    ints = [int(v) for v in ctx.unpack(rows.reshape(-1, ctx.num_words))]
+    with tracker.span("sumcheck.rounds"):
+        rows = _device_prove(
+            ctx, poly.num_vars, kd.pairs_to_lanes(state_pairs), kd.bytes_to_lanes(tail),
+            poly.table,
+        )
+    with tracker.span("sumcheck.fetch"):
+        ints = [int(v) for v in ctx.unpack(rows.reshape(-1, ctx.num_words))]
     proof_polynomials = [
         [ints[2 * k], ints[2 * k + 1]] for k in range(poly.num_vars)
     ]
