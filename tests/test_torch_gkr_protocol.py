@@ -207,5 +207,7 @@ def test_dense_prover_tracker_counts_equal_zktpu():
     want = dict(case.jcounts)
     want["mul"] -= 2 * 3
     want["add"] -= 2 * 6
-    assert tracker.summary() == want and tracker.summary()
+    # the host packing routes (field.pack_fast / field.pack_exact) have no count in zktpu
+    ops = {k: v for k, v in tracker.summary().items() if not k.startswith("field.pack_")}
+    assert ops == want and ops
     tracker.reset()

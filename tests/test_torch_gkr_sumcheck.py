@@ -143,7 +143,9 @@ def test_gkr_prove_tracker_counts_equal_zktpu():
     with tracker.tracking(), jtracker.tracking():
         sc.gkr_prove(claimed, port, Transcript(FR))
         jsc.gkr_prove(claimed, ref, JaxTranscript(JAX_FR))
-    assert tracker.summary() == jtracker.summary() and tracker.summary()
+    # the host packing routes (field.pack_fast / field.pack_exact) have no count in zktpu
+    ops = {k: v for k, v in tracker.summary().items() if not k.startswith("field.pack_")}
+    assert ops == jtracker.summary() and ops
     tracker.reset()
     jtracker.reset()
 

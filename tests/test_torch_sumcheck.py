@@ -162,6 +162,8 @@ def test_tracker_counts_match_zktpu():
         protocol.verify(case.poly, proof)
         jproof = jsc.prove(case.jpoly)
         jsc.verify(case.jpoly, jproof)
-    assert tracker.summary() == jtracker.summary() and tracker.summary()
+    # the host packing routes (field.pack_fast / field.pack_exact) have no count in zktpu
+    ops = {k: v for k, v in tracker.summary().items() if not k.startswith("field.pack_")}
+    assert ops == jtracker.summary() and ops
     tracker.reset()
     jtracker.reset()

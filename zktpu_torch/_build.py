@@ -1,12 +1,13 @@
 """Builds the package's native code, at first use, from the sources in the tree.
 
-Two kinds of library, both with a plain C interface and loaded with ``ctypes``:
+Two kinds of library, both with a C interface and loaded with ``ctypes``:
 
   * CUDA kernels: one shared library per ``csrc/<stem>.cu``, compiled by ``nvcc``
     for ``sm_90a``. Reached only from a kernel wrapper that was handed a CUDA
     tensor, so importing the package needs neither ``nvcc`` nor a card.
-  * host code: C (the Keccak sponge) compiled by ``gcc``, C++ (the field
-    oracle) by ``g++``.
+  * host code: C (the Keccak sponge; the packer of small ints, which reads
+    Python objects and is built against Python's headers) compiled by ``gcc``,
+    C++ (the field oracle) by ``g++``.
 
 Outputs go to ``zktpu_torch/_build/`` (ignored by git) under a name that carries
 a hash of the sources, so an edit rebuilds and a stale library is never loaded.

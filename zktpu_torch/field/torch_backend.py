@@ -32,10 +32,13 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import os
+import sysconfig
 
 import numpy as np
 import torch
 
+from .. import _build
 from ..utils import tracker
 from .spec import LIMB_BITS, LIMB_MASK, FieldSpec
 
@@ -46,6 +49,25 @@ def words_to_tensor(words: np.ndarray, device) -> torch.Tensor:
     """numpy uint32 words -> int32 tensor (same bits) on ``device``."""
     arr = np.ascontiguousarray(words, dtype="<u4").view(np.int32)
     return torch.from_numpy(arr).to(device)
+
+
+_PACK_SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_pack.c")
+_PACK_FLAGS = ["-O2", "-I", sysconfig.get_paths()["include"]]
+
+
+@functools.lru_cache(maxsize=None)
+def _pack_small():
+    """The C packer ``_pack.c:pack_small``, built at first use; None where it
+    cannot be built or loaded. Loaded with ``PyDLL``: it reads Python objects,
+    so it keeps the interpreter lock."""
+    try:
+        lib = ctypes.PyDLL(_build.host_library_path("zkpack", _PACK_SOURCE, _PACK_FLAGS))
+    except (_build.CompileError, OSError):
+        return None
+    fn = lib.pack_small
+    fn.argtypes = [ctypes.py_object, ctypes.c_void_p, ctypes.c_ssize_t, ctypes.c_ssize_t]
+    fn.restype = ctypes.c_ssize_t
+    return fn
 
 
 def tensor_to_words(t) -> np.ndarray:
@@ -84,6 +106,8 @@ class FieldCtx:
         self.one_mont = self._const(spec.to_words(spec.R))
         self.zero = self._const([0] * self.num_words)
         self.p_digits = _to_digits(self.p)
+        # every int in [0, 2^64) is then canonical, as ``pack_small`` needs
+        self._small_is_canonical = p > 1 << 64
 
     def _const(self, words) -> torch.Tensor:
         return words_to_tensor(np.asarray(words, dtype=np.uint32), self.device)
@@ -94,12 +118,23 @@ class FieldCtx:
         """Python ints (nested lists ok) -> canonical uint32 word array on the
         host, values reduced mod p.
 
-        Fast path: if every value already fits in uint64 the split is pure
-        numpy; otherwise each value is serialized to little-endian bytes and
-        viewed as words."""
+        A flat list or tuple of ints in [0, 2^64) goes through the C packer in
+        one pass (``field.pack_fast``). Anything else, and any such list the
+        packer declines an item of, takes the exact route from the start
+        (``field.pack_exact``): if every value fits in uint64 the split is
+        numpy; otherwise each value is reduced and serialized to bytes."""
         w = self.num_words
+        if self._small_is_canonical and isinstance(values, (list, tuple)):
+            fn = _pack_small()
+            if fn is not None:
+                n = len(values)
+                arr = np.empty((n, w), dtype=np.uint32)
+                if fn(values, arr.ctypes.data, n, w) < 0:
+                    tracker.count("field.pack_fast", n)
+                    return arr
         shape = np.shape(values) + (w,)
         flat = np.asarray(values, dtype=object).reshape(-1)
+        tracker.count("field.pack_exact", flat.size)
         try:
             small = flat.astype(np.uint64)
             if flat.size and (small.astype(object) != flat).any():

@@ -103,7 +103,8 @@ class MultilinearPoly:
     @classmethod
     def from_ints(cls, ctx: FieldCtx, values) -> "MultilinearPoly":
         with tracker.span("field.pack"):
-            canonical = ctx.pack(list(values))
+            # a list or tuple is packed as it is: the words hold no reference to it
+            canonical = ctx.pack(values if isinstance(values, (list, tuple)) else list(values))
         with tracker.span("field.upload"):
             poly = cls(ctx, fk.to_mont(ctx, ctx.to_device(canonical)))
         # host-constructed tables keep their canonical words so transcript
