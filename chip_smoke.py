@@ -4,11 +4,12 @@
     python3 chip_smoke.py
 
 It needs one CUDA device and ``nvcc``; with no card it exits non-zero at once.
-It builds the CUDA kernels from ``zktpu_torch/csrc/`` (one ``nvcc`` a source, all
-started together), then
+It checks and does not time: the benchmark (``zkbench/``) times the paths, and
+``scripts/time_kernels.py`` a kernel alone. It builds the CUDA kernels from
+``zktpu_torch/csrc/`` (one ``nvcc`` a source, all started together), then
 
-  1. prints the card's name and power limit, the build time and the host Keccak
-     backend (the pure-Python one is refused);
+  1. prints the card's name and power limit and the host Keccak backend (the
+     pure-Python one is refused), and fails on a kernel that spills registers;
   2. holds each kernel against its plain PyTorch version on the card, word for
      word (tolerance 0: this is integer arithmetic), for BN254 Fq and BLS12-381
      Fr at sizes from 2 to 2^20 and BLS12-381 Fq (12 words) up to 4096, with
@@ -25,7 +26,8 @@ started together), then
   3. drives the first main path at full size through the public entry points:
      the sumcheck prove + verify of a 2^20-entry BN254 Fq multilinear polynomial
      (``MultilinearPoly.from_ints`` -> ``sumcheck.fused.prove`` ->
-     ``sumcheck.protocol.verify``), and reads the kernels' launch counts;
+     ``sumcheck.protocol.verify``), reads the kernels' launch counts, and proves
+     and verifies it WARM_RUNS times more, each proof equal to the first;
   4. ties the proof to the JAX reference package: it must equal the host-loop
      prover's, hash to a stored digest, and a 2^12 proof must equal the CPU's;
      a tampered proof must be refused;
@@ -33,14 +35,12 @@ started together), then
      circuit of 2^20 inputs and 2^20 - 1 random add/mul gates over BLS12-381 Fr
      (``Circuit.evaluate`` -> ``gkr.protocol.prove_layers``, lazy and fused by
      default -> ``gkr.protocol.verify_layers``), reads the launch counts again,
-     and checks the input layer's two evaluations and two tampered proofs;
-  6. ties the GKR proof: the fused proof equals the host-loop lazy one at 2^20
-     inputs, the dense one equals the lazy one at 2^8, the card's equals the
-     CPU's at 2^10, and the 2^16 proof hashes to a stored digest;
-  7. times the first two paths and each kernel (CUDA events, median), beside
-     each kernel's plain version and the least time the card could take
-     (gkr_round, halves_sums and fold_and_halves beside their times before
-     the redesign; halves_sums beside a torch.sum of the same bytes);
+     checks the input layer's two evaluations and two tampered proofs, and
+     proves and verifies it WARM_RUNS times more, the last proof equal to the
+     first;
+  6. ties the GKR proof: the dense one equals the lazy one at 2^8 inputs, the
+     card's equals the CPU's at 2^10, and the 2^16 proof hashes to a stored
+     digest;
   8. drives the third main path at full size: the whole GKR proof of the same
      2^20-input circuit with its multilinear-KZG input proof
      (``gkr.protocol.prove`` -> ``gkr.protocol.verify``: the SRS comb, the
@@ -48,19 +48,14 @@ started together), then
      pairings), reads the launch counts of the kernels (a compaction round is
      one run_scan and one compact_add launch, 171 in all; the window combines
      two horner launches, the commitment's and all 20 quotient steps' chains
-     in one; no point_double), and refuses a tampered quotient point,
-     commitment and opened evaluation;
+     in one; no point_double), refuses a tampered quotient point, commitment
+     and opened evaluation, and proves it WARM_RUNS times more, the last input
+     proof equal to the first and its opening at r_b accepted by ``KZG.verify``;
   9. ties the input proof without a reference run: the taus are known, so the
      commitment, every quotient commitment and some SRS entries must be the
      host's scalar multiples of G1; the comb equals the ladder and Pippenger the
      bit-split MSM at 2^10; a 2^6 proof on the card equals the CPU's; the 2^5
      proof hashes to a stored digest;
- 10. times the third path: ``prove`` warm with its stages and each quotient
-     step, ``verify`` with the host's pairings apart, synchronising calls, peak
-     device memory; then the point kernels at 2^16 and 2^20 beside their
-     times before the redesign, at widths 1 and 2 (the Horner chain's shapes,
-     point_double 1, 4, 8 and 16 times) and on a 2^20 batch that is 75 %
-     infinities;
  11. holds the two NTT kernels against their plain versions on BN254 Fr tables
      with 0, 1, r - 1 and R mod r entries, forward and inverse twiddles:
      ``ntt_phase1`` at every size from 1 to 2^22 entries and every tile it
@@ -71,22 +66,18 @@ started together), then
      ``to_mont``), then ``fft_evaluate`` -> ``fft_interpolate`` at 2^20 through
      host ints; checks the launches of each call, the round trips, four outputs
      against the host's Horner evaluation, and the card's 2^12 transforms
-     against the CPU's;
- 13. times both NTT kernels at 2^20 and 2^22 beside their plain versions and
-     bounds (ntt_phase1 beside its time before the redesign), the twiddle
-     build, warm transforms, and ``fft_evaluate`` /
-     ``fft_interpolate`` with their host packing apart.
+     against the CPU's.
 
-Before (14), the profiler counts the device kernels of phase 4's fused prove
-(at most 3 a round + 10) and of a fused GKR phase of 2^10 entries (one, its
-``gkr_phase_tail``) and of 2^20 (a ``gkr_big_round`` a round above
-``fused_lazy.TAIL_MAX`` entries, and a tail).
-Then (14) each of the four paths runs once more under ``torch.profiler``, and
-the sixteen kernels are ranked by their device time on the paths less the
-bound of the lanes they covered there; on each path the device runs one kernel
-a launch of ``halves_sums``, ``fold_and_halves``, ``round_step``, ``keccak_f``,
-``gkr_big_round``, ``gkr_phase_tail``, ``compact_add`` and ``horner``, two of
-``run_scan``; the sumcheck a ``round_step`` a round; the GKR paths a
+(Phases 7, 10 and 13 timed the paths and kernels; the others keep their
+numbers, which the tests and documents cite.) Before (14), the profiler counts
+the device kernels of phase 3's fused prove (at most 3 a round + 10) and of a
+fused GKR phase of 2^10 entries (one, its ``gkr_phase_tail``) and of 2^20 (a
+``gkr_big_round`` a round above ``fused_lazy.TAIL_MAX`` entries, and a tail).
+Then (14) each of the four paths runs once more under ``torch.profiler``: on
+each path the device runs one kernel a launch of ``halves_sums``,
+``fold_and_halves``, ``round_step``, ``keccak_f``, ``gkr_big_round``,
+``gkr_phase_tail``, the three GKR table kernels, ``compact_add`` and ``horner``,
+two of ``run_scan``; the sumcheck a ``round_step`` a round; the GKR paths a
 ``gkr_big_round`` a round above ``fused_lazy.TAIL_MAX`` entries and a
 ``gkr_phase_tail`` a phase, and no ``gkr_round``, ``finish_rows`` or
 ``round_step``; no path a ``keccak_f``, and no device kernel of ``torch.cummax``
@@ -109,25 +100,22 @@ them), or the script fails. Last,
  16. the mesh paths (``zktpu_torch.parallel``): the batched NTT kernels (a
      batch of tables in one launch: 2^10 rows of 2^10, 2^11 of 2^11, 3 of
      2^12, rows of 1, 2 and 4 entries) against their plain versions, word for
-     word, and their times beside the unbatched table's; then, on a mesh of 4
-     slots of the one card and on the mesh of every card present:
-     ``sumcheck_prove_sharded`` of phase 3's table equals phase 3's proof and
-     digest; ``ntt_sharded`` forward and inverse at 2^20 and 2^22 equals phase
-     12's outputs and inputs; ``msm_pippenger_sharded`` and the ladder
-     ``msm_sharded`` (the path that runs ``point_double``) of the 2^20-point
-     commitment equal phase 8's commitment; on the 4-slot mesh
-     ``gkr.prove(mesh=...)`` of phase 8's circuit encodes to phase 8's bytes
-     (phase 15's blob), and once more under the profiler it runs no cummax or
-     searchsorted kernel and one device kernel a launch of the MSM kernels;
-     ``dryrun_multichip`` passes; the launches of each kernel in the phase and
-     each sharded path's warm time beside the single device's.
+     word; then, on a mesh of 4 slots of the one card and on the mesh of every
+     card present: ``sumcheck_prove_sharded`` of phase 3's table equals phase
+     3's proof and digest; ``ntt_sharded`` forward and inverse at 2^20 and 2^22
+     equals phase 12's outputs and inputs; ``msm_pippenger_sharded`` and the
+     ladder ``msm_sharded`` (the path that runs ``point_double``) of the
+     2^20-point commitment equal phase 8's commitment; on the 4-slot mesh
+     ``gkr.prove(mesh=...)`` of phase 8's circuit (its layer sumchecks on the
+     sharded prover) encodes to phase 8's bytes (phase 15's blob), and once more
+     under the profiler it runs no cummax or searchsorted kernel and one device
+     kernel a launch of the MSM kernels; ``dryrun_multichip`` passes; every
+     kernel the mesh paths need is launched.
  17. the transcript kernels: ``keccak_f`` against its plain version on 1, 33
      and 4096 random states, ``round_step`` on 2 and 3 lazy rows (trimmed
      lengths 0-3, steady rounds and first rounds of one and two blocks, low
      words at or above p, digests at or above p) for BN254 Fq and BLS12-381 Fr,
-     word for word; each one's device time a launch at the paths' shapes (by
-     the profiler's clock) beside its plain version, its bound and one
-     thread's least time.
+     word for word.
  18. the MSM kernels: ``run_scan`` against its plain version at 1, 2, 3 and
      from 127 to 2^24 keys (random runs, all equal, all distinct, runs that
      cross the scan's tiles, MAXKEY tails; ``l_next`` below, at and
@@ -138,11 +126,11 @@ them), or the script fails. Last,
      of real MSMs with infinities mixed in, and ``horner_groups`` on the 20
      quotient steps' shapes (2 segments, c = 16, 8 x 9, 4 x 10; the same cut
      of windows) in one launch, word for word; the cooperative lanes' Fq
-     product (``fq_mul_coop``) against the oracle on phase 15's values; then on the commitment MSM of phase 8,
-     its first compaction round (2^24 keys) and a steady one, and its Horner
-     chain: each kernel against its plain version and the eager chain it
-     replaced, with their times (CUDA events) beside the bounds; the
-     quotient steps' Horner shapes and their one launch.
+     product (``fq_mul_coop``) against the oracle on phase 15's values; then on
+     the commitment MSM of phase 8, its first compaction round (2^24 keys) and
+     a steady one against their plain versions and the eager round they
+     replaced, and whole Horner chains (the commitment's, and two segments at
+     c = 16, 8 and 4) against the eager chain.
  19. the fused GKR phase kernels: ``gkr_big_round`` against its plain version
      on stacks of 2^15 to 2^20 entries, a phase's first round and a steady one,
      tables whose rounds trim to 0-3 coefficients, and three rounds back to
@@ -150,29 +138,20 @@ them), or the script fails. Last,
      ``TAIL_MAX``, from a phase's first round and after a pending fold, pending
      tails of one and two blocks, at ``gkr.kernels.BLOCK_MAX`` (grid rounds,
      then block rounds) and, up to 2^12 entries, at four forced ones (grid
-     rounds only, and the switch at 2^2, 2^9 and 2^10), word for word; then
-     each one's time (CUDA events; device us a launch and a round by the
-     profiler's clock; the tail after a fold from twice ``TAIL_MAX`` and from
-     2^19 and from a first round at ``TAIL_MAX``, 2^18, 2^14, 2^11, 2^10, 2^6
-     and 2) beside the parent's launches for the same work (``fold``,
-     ``gkr_round`` with its ``finish_rows``, ``round_step``, a round), its
-     plain version and its bound.
+     rounds only, and the switch at 2^2, 2^9 and 2^10), word for word.
  20. the GKR layer-table kernels: ``gkr_wiring``, ``gkr_phase1_stack`` and
      ``gkr_phase2_stack`` against their plain versions (the eager chains they
      replace) at every layer size of the 2^20-input walk, 2^0 to 2^19 gates,
-     mismatched words 0; each one's time at 2^19 gates beside its plain
-     version and its bound (bytes), and the host time of queueing a layer's
-     tables both ways.
+     mismatched words 0.
 
-The bounds are ``zktpu_torch/utils/roofline.py``'s, at the peaks it lists for
-the card (it raises on a card it does not list). Any failed comparison exits
-non-zero. The last line of the output is one JSON object, ``{"ok": true,
-"device": {...}}``; the line before it lists the sixteen kernels with their
-launch counts (the four paths and phases 15 and 16), errors, times and bounds.
-The plain sumcheck's transcript is ``round_step``'s, a launch a round (phase
-3); a GKR phase is ``gkr_big_round`` and ``gkr_phase_tail`` launches, whose
-rounds run the same transcript step inside them (phase 5); neither makes a
-``mont_mul`` or permutation of its own.
+Any failed comparison exits non-zero. The last line of the output is one JSON
+object, ``{"ok": true, "checks": N, "device": {...}}``, N the ``check`` calls
+that ran; the line before it lists the sixteen kernels that replace zktpu's TPU
+kernels with their launch counts (the four paths and phases 15 and 16) and
+largest errors against their plain versions. The plain sumcheck's transcript is
+``round_step``'s, a launch a round (phase 3); a GKR phase is ``gkr_big_round``
+and ``gkr_phase_tail`` launches, whose rounds run the same transcript step
+inside them (phase 5); neither makes a ``mont_mul`` or permutation of its own.
 """
 
 from __future__ import annotations
@@ -181,12 +160,10 @@ import copy
 import json
 import os
 import re
-import statistics
 import struct
 import subprocess
 import sys
 import time
-import warnings
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -223,8 +200,6 @@ from zktpu_torch.poly.multilinear import MultilinearPoly
 from zktpu_torch.poly.univariate import UnivariatePoly
 from zktpu_torch.sumcheck import fused, protocol
 from zktpu_torch.transcript import Transcript
-from zktpu_torch.utils import roofline
-from zktpu_torch.utils.roofline import time_events
 
 NUM_VARS = 20
 #: Keccak-256 of vec_to_bytes(claimed_sum, round polynomials) of the seed-0
@@ -268,14 +243,6 @@ POINT_CHECK_WIDTHS = (1, 2, 33, 127, 128, 129, 4096, 1 << 20)
 #: point_double's repeat counts held against the plain version up to 4096 lanes
 #: (a plain doubling of 2^20 lanes takes some 0.4 s: there only once)
 POINT_DOUBLE_TIMES = (1, 2, 16)
-POINT_TIME_WIDTHS = (1 << 16, 1 << 20)
-#: the Horner chain's widths, and the repeat counts timed there
-HORNER_WIDTHS = (1, 2)
-HORNER_TIMES = (1, 4, 8, 16)
-#: the point kernels' times before the redesign (ms, CUDA events, L2 flushed;
-#: chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700 W, PERF.md section 6)
-POINT_MS_BEFORE = {("point_add", 1 << 16): 0.1848, ("point_add", 1 << 20): 1.4642,
-                   ("point_double", 1 << 16): 0.0478, ("point_double", 1 << 20): 0.5428}
 #: point_add launches of the 2^20-input gkr.prove: the comb's 31, the basis
 #: chain's 20 folds, and the bucket reductions' Kogge-Stone and pair steps,
 #: 2 (c - 1) a Pippenger call (``kzg_expected_msm_launches``). Before the
@@ -286,8 +253,8 @@ KZG_POINT_ADDS_2E20 = 297
 #: densifying rounds, one of each a round (the round count follows the data,
 #: which is fixed by the seeds)
 KZG_COMPACT_ROUNDS_2E20 = 171
-TIME_SIZES = (1 << 20, 1 << 24)
-TIMED_RUNS = 10
+#: the proofs of phases 3, 5 and 8 are made once more this many times, warm
+WARM_RUNS = 3
 
 #: the NTT path: BN254 Fr tables of 2^20 and 2^22 entries (bench.py:328-330);
 #: fft_evaluate / fft_interpolate at the first size
@@ -307,24 +274,12 @@ ORACLE_LOG_SIZE = 12
 #: the port's blob to the JAX package's, byte for byte, at 16 entries
 SUMCHECK_BLOB_DIGEST_2E20 = "a4c4feb633415853b4457da88534ad8999f607ea1bea082a49f04ffa52588181"
 
-#: the times of gkr_round, halves_sums and fold_and_halves (at 2^20 and 2^24
-#: entries) and ntt_phase1 (at 2^20 and 2^22) before their redesign (ms, CUDA
-#: events, L2 flushed; chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700 W,
-#: PERF.md section 6)
-KERNEL_MS_BEFORE = {("gkr_round", 1 << 20): 0.1417, ("gkr_round", 1 << 24): 1.8577,
-                    ("halves_sums", 1 << 20): 0.0283, ("halves_sums", 1 << 24): 0.1927,
-                    ("fold_and_halves", 1 << 20): 0.0370,
-                    ("fold_and_halves", 1 << 24): 0.3453,
-                    ("ntt_phase1", 1 << 20): 0.2310, ("ntt_phase1", 1 << 22): 0.8480}
-
 #: phase 16: the batched NTT kernels against their plain versions, word for
 #: word, at these (log2 entries of a table, tables in the batch): the row DFTs
 #: of the four-step NTT at 2^20 and 2^22, three rows of 2^12, rows of 1, 2, 4
 NTT_BATCH_CHECKS = ((10, 1 << 10), (11, 1 << 11), (12, 3), (0, 5), (1, 5), (2, 5))
-#: the slots of the one-card mesh of phase 16 (the card repeated), and the
-#: runs of each sharded path's warm time
+#: the slots of the one-card mesh of phase 16 (the card repeated)
 MESH_SLOTS = 4
-MESH_TIMED_RUNS = 3
 
 KERNEL_SOURCE = "zktpu_torch/csrc/sumcheck_kernels.cu"
 POINT_KERNEL_SOURCE = "zktpu_torch/csrc/point_kernels.cu"
@@ -437,7 +392,13 @@ def say(msg: str) -> None:
     print(msg, flush=True)
 
 
+#: the ``check`` calls that ran; ``main`` prints the total
+checks_run = 0
+
+
 def check(cond, msg: str) -> None:
+    global checks_run
+    checks_run += 1
     if not cond:
         raise SystemExit(f"chip_smoke FAILED: {msg}")
 
@@ -500,6 +461,10 @@ def gkr_proof_values(layers_proof) -> list[int]:
     for o_1, o_2 in proof.claimed_evaluations:
         flat += [o_1, o_2]
     return flat + layers_proof.r_b + layers_proof.r_c + list(layers_proof.input_evals)
+
+
+def same_layers_proof(a, b) -> bool:
+    return gkr_proof_values(a) == gkr_proof_values(b)
 
 
 def gkr_proof_digest(spec, layers_proof) -> str:
@@ -647,7 +612,6 @@ def phase_kernels_vs_plain() -> dict[str, int]:
 def phase_sum_kernels_vs_plain() -> dict[str, int]:
     """halves_sums and fold_and_halves, the one-launch kernels, at every size,
     on their edge cases and back to back."""
-    t0 = time.time()
     worst = {"halves_sums": 0, "fold_and_halves": 0}
 
     def hold(name: str, got, want, what: str) -> None:
@@ -697,7 +661,6 @@ def phase_sum_kernels_vs_plain() -> dict[str, int]:
             f"r = 0, 1, p - 1, R mod p and random, all-ones tables"
             + (", twice back to back on three grids" if top_log >= TICKET_LOGS[-1] else "")
             + ": " + " ".join(f"{k}={v}" for k, v in worst.items()))
-    say(f"  (these checks took {time.time() - t0:.1f}s)")
     return worst
 
 
@@ -710,21 +673,10 @@ def phase_main_path(ctx):
     torch.cuda.synchronize()
     fk.reset_launches()
     tk.reset_launches()
-    t0 = time.time()
     poly = MultilinearPoly.from_ints(ctx, values)
-    torch.cuda.synchronize()
-    t_build = time.time() - t0
-    t0 = time.time()
     proof = fused.prove(poly)
-    torch.cuda.synchronize()
-    t_prove = time.time() - t0
-    t0 = time.time()
     ok = protocol.verify(poly, proof)
-    torch.cuda.synchronize()
-    t_verify = time.time() - t0
     launches = {**fk.launches, **tk.launches}
-    say(f"  first run: table build+upload {t_build:.3f}s  prove {t_prove:.3f}s "
-        f"(includes the host's Keccak pass over the table)  verify {t_verify:.3f}s")
     say(f"  launches on the main path: {launches}")
     check(ok, "verify refused the fused prover's proof")
     check(len(proof.proof_polynomials) == NUM_VARS, "wrong number of round polynomials")
@@ -732,6 +684,11 @@ def phase_main_path(ctx):
     check(all(0 <= v < p for rp in proof.proof_polynomials for v in rp), "values not canonical")
     check(proof.claimed_sum == sum(values) % p, "claimed sum is not the table's sum")
     check(launches == EXPECTED_LAUNCHES, f"launch counts {launches} != {EXPECTED_LAUNCHES}")
+    for _ in range(WARM_RUNS):
+        again = fused.prove(poly)
+        check(protocol.verify(poly, again) and again == proof,
+              "a warm proof is refused or differs from the first")
+    say(f"  {WARM_RUNS} warm proofs == the first, each accepted")
     return poly, proof, launches
 
 
@@ -769,32 +726,17 @@ def phase_gkr_main_path(ctx):
     n = GKR_NUM_VARS
     structure, inputs = gkr_benchmark(n)
     circuit = Circuit(ctx, structure)
-    torch.cuda.synchronize()
-    t0 = time.time()
     input_poly = MultilinearPoly.from_ints(ctx, inputs)
-    torch.cuda.synchronize()
-    t_upload = time.time() - t0
-    t0 = time.time()
     evaluations = circuit.evaluate(input_poly)
-    torch.cuda.synchronize()
-    t_eval = time.time() - t0
     check(len(evaluations) == n and evaluations[-1].table.shape[0] == 1, "circuit evaluation shape")
 
     fk.reset_launches()
     tk.reset_launches()
     gk.reset_launches()
     gt.reset_launches()
-    t0 = time.time()
     proved = gkr.prove_layers(circuit, inputs)
-    torch.cuda.synchronize()
-    t_prove = time.time() - t0
-    t0 = time.time()
     verdict = gkr.verify_layers(proved.proof, circuit, proved.input_evals)
-    torch.cuda.synchronize()
-    t_verify = time.time() - t0
     launches = {**fk.launches, **tk.launches, **gk.launches, **gt.launches}
-    say(f"  first run: inputs upload {t_upload:.3f}s  circuit evaluation {t_eval:.3f}s  "
-        f"prove_layers {t_prove:.3f}s (uploads and evaluates again)  verify_layers {t_verify:.3f}s")
     say(f"  launches on the GKR path: {launches}")
 
     check(verdict.verified, "verify_layers refused the prover's proof")
@@ -828,21 +770,16 @@ def phase_gkr_main_path(ctx):
                                                  proved.input_evals[1])).verified,
           "a wrong input evaluation was accepted")
     say("  tampered claimed evaluation, round coefficient and input evaluation refused")
+    for _ in range(WARM_RUNS):
+        again = gkr.prove_layers(circuit, inputs)
+        check(gkr.verify_layers(again.proof, circuit, again.input_evals).verified,
+              "warm verify failed")
+    check(same_layers_proof(again, proved), "a warm proof differs from the first")
+    say(f"  {WARM_RUNS} warm proofs accepted, the last == the first")
     return circuit, inputs, proved, launches
 
 
-def same_layers_proof(a, b) -> bool:
-    return gkr_proof_values(a) == gkr_proof_values(b)
-
-
-def phase_gkr_ties(ctx, circuit, inputs, proved) -> None:
-    t0 = time.time()
-    host_loop = gkr.prove_layers(circuit, inputs, fused=False)
-    torch.cuda.synchronize()
-    check(same_layers_proof(host_loop, proved), "fused proof differs from the host-loop lazy prover's")
-    say(f"  fused proof == host-loop lazy proof at 2^{GKR_NUM_VARS} inputs "
-        f"(host loop {time.time() - t0:.1f}s)")
-
+def phase_gkr_ties(ctx) -> None:
     structure, small_inputs = gkr_benchmark(8)
     small = Circuit(ctx, structure)
     launched = fk.launches["gkr_round"]
@@ -871,115 +808,8 @@ def phase_gkr_ties(ctx, circuit, inputs, proved) -> None:
 
 
 # ----------------------------------------------------------------------
-# phase 7: times
+# before phase 14: the device kernels of a prove and of a GKR phase
 # ----------------------------------------------------------------------
-
-def time_kernels_at(ctx, rng, flush, r, size: int) -> dict[str, dict]:
-    table = random_table(ctx, rng, size)
-    gctx = fb.get_ctx(BLS12_381_FR)  # the field of the path that launches gkr_round
-    stack = random_table(gctx, rng, 2, 2, size)
-    cases = {
-        "mont_mul": (lambda: fk.mont_mul(ctx, table, ctx.r2),
-                     lambda: fk.mont_mul_plain(ctx, table, ctx.r2)),
-        "fold": (lambda: fk.fold(ctx, table, r), lambda: fk.fold_plain(ctx, table, r)),
-        "halves_sums": (lambda: fk.halves_sums(ctx, table),
-                        lambda: fk.halves_sums_plain(ctx, table)),
-        "fold_and_halves": (lambda: fk.fold_and_halves(ctx, table, r),
-                            lambda: fk.fold_and_halves_plain(ctx, table, r)),
-        "gkr_round": (lambda: fk.gkr_round(gctx, stack), lambda: fk.gkr_round_plain(gctx, stack)),
-    }
-    out = {}
-    for name, (kernel, plain) in cases.items():
-        cold = time_events(kernel, TIMED_RUNS, flush)
-        warm = time_events(kernel, TIMED_RUNS)
-        plain_ms = time_events(plain, 3 if size > (1 << 20) else 5, flush)
-        nbytes, mads = roofline.FIELD_KERNEL_COSTS[name](size, ctx.num_words)
-        b = roofline.bound(nbytes, mads)
-        rec = {
-            "ms": cold, "warm_ms": warm, "plain_ms": plain_ms, "bytes": nbytes,
-            "gb_per_s": nbytes / (cold * 1e-3) / 1e9, "bound_ms": b.ms, "bound_by": b.by,
-        }
-        out[name] = rec
-        if name == "halves_sums":
-            # a library reduction over the same bytes: signed columns, not the
-            # kernel's function, so not its library_ms; a yardstick of the rate
-            half = size // 2
-            rec["yardstick_ms"] = time_events(
-                lambda: torch.sum(table.view(2, half, ctx.num_words), dim=1, dtype=torch.int64),
-                TIMED_RUNS, flush)
-            say(f"  torch.sum(table.view(2, half, W), dim=1, dtype=torch.int64) "
-                f"2^{size.bit_length() - 1}: {rec['yardstick_ms']:.4f} ms cold L2 "
-                f"({nbytes / (rec['yardstick_ms'] * 1e-3) / 1e9:.0f} GB/s)")
-        before = KERNEL_MS_BEFORE.get((name, size))
-        say(f"  {name} 2^{size.bit_length() - 1}: {cold:.4f} ms cold L2 "
-            + (f"(before the redesign: {before:.4f}) " if before else "")
-            + f"({rec['gb_per_s']:.0f} GB/s of {nbytes} bytes), {warm:.4f} ms warm, "
-            f"plain {plain_ms:.2f} ms, bound {rec['bound_ms']:.4f} ms by {rec['bound_by']} "
-            f"(bytes {b.bytes_ms:.4f} ms, operations {b.ops_ms:.4f} ms; {rec['bound_ms'] / cold:.1%} "
-            f"of it)")
-    return out
-
-
-def phase_kernel_times(ctx) -> dict[int, dict[str, dict]]:
-    """Each kernel alone at every size of TIME_SIZES: size -> name -> record."""
-    rng = np.random.default_rng(2)
-    flush = torch.empty(256 << 20, dtype=torch.int8, device=ctx.device)
-    r = random_table(ctx, rng)
-    out = {}
-    for size in TIME_SIZES:
-        out[size] = time_kernels_at(ctx, rng, flush, r, size)
-        torch.cuda.empty_cache()
-    return out
-
-
-def phase_path_times(ctx, poly) -> None:
-    """Warm prove and verify at 2^NUM_VARS, and where the prover's time goes."""
-    proves, verifies = [], []
-    for _ in range(3):
-        t0 = time.time()
-        proof = fused.prove(poly)
-        torch.cuda.synchronize()
-        proves.append(time.time() - t0)
-        t0 = time.time()
-        check(protocol.verify(poly, proof), "warm verify failed")
-        torch.cuda.synchronize()
-        verifies.append(time.time() - t0)
-    t_prove, t_verify = statistics.median(proves), statistics.median(verifies)
-    say(f"  warm 2^{NUM_VARS}: prove {t_prove:.4f}s  verify {t_verify:.4f}s  "
-        f"prove+verify {t_prove + t_verify:.4f}s (median of 3, host clock, synchronised)")
-
-    def host_ms(fn, n=20):
-        fn()
-        torch.cuda.synchronize()
-        t0 = time.time()
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-        return (time.time() - t0) / n * 1e3
-
-    # a round's transcript step: one round_step launch, and its plain version
-    # (the eager chain of canonical form, absorb and challenge that it replaced)
-    state = torch.arange(25, dtype=torch.int64, device=ctx.device)
-    rows = torch.ones((2, ctx.num_words + fk.EXTRA_WORDS), dtype=torch.int32, device=ctx.device)
-    ms_step = host_ms(lambda: tk.round_step(ctx, rows, state))
-    ms_plain = host_ms(lambda: tk.round_step_plain(ctx, rows, state), 5)
-    say(f"  a round's transcript step, per call (host clock, synchronised): round_step "
-        f"{ms_step:.4f} ms, its plain version {ms_plain:.3f} ms; {NUM_VARS} a prove: "
-        f"{NUM_VARS * ms_step:.2f} ms of the warm prove's {t_prove * 1e3:.2f} ms")
-
-
-def count_syncs(fn):
-    """Run ``fn`` and count the synchronising calls PyTorch made (blocking
-    copies either way, ``item``), as its sync debug mode reports them."""
-    torch.cuda.set_sync_debug_mode("warn")
-    try:
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            out = fn()
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
-    return out, sum("synchronizing CUDA operation" in str(w.message) for w in caught)
-
 
 def count_device_kernels(fn) -> int:
     """Device kernels launched by ``fn``, from a torch.profiler trace."""
@@ -993,56 +823,19 @@ def count_device_kernels(fn) -> int:
                if e.device_type.name == "CUDA" and e.device_time_total > 0)
 
 
-def phase_gkr_times(ctx, circuit, inputs, proved) -> None:
-    """Warm prove_layers and verify_layers at 2^GKR_NUM_VARS inputs and the
-    synchronising calls of a proof."""
-    n = GKR_NUM_VARS
-    proves, verifies = [], []
-    for _ in range(3):
-        t0 = time.time()
-        again = gkr.prove_layers(circuit, inputs)
-        torch.cuda.synchronize()
-        proves.append(time.time() - t0)
-        t0 = time.time()
-        check(gkr.verify_layers(again.proof, circuit, again.input_evals).verified, "warm verify failed")
-        torch.cuda.synchronize()
-        verifies.append(time.time() - t0)
-    check(same_layers_proof(again, proved), "a warm proof differs from the first")
-    t_prove, t_verify = statistics.median(proves), statistics.median(verifies)
-    say(f"  warm GKR 2^{n} inputs: prove_layers {t_prove:.4f}s  verify_layers {t_verify:.4f}s  "
-        f"together {t_prove + t_verify:.4f}s (median of 3, host clock, synchronised; "
-        f"runs {' '.join(f'{t:.3f}' for t in proves)} / {' '.join(f'{t:.3f}' for t in verifies)})")
-
-    _, syncs_prove = count_syncs(lambda: gkr.prove_layers(circuit, inputs))
-    _, syncs_verify = count_syncs(
-        lambda: gkr.verify_layers(proved.proof, circuit, proved.input_evals))
-    say(f"  synchronising calls: prove_layers {syncs_prove} ({syncs_prove / n:.1f} a layer), "
-        f"verify_layers {syncs_verify} ({syncs_verify / n:.1f} a layer)")
-
-    say(f"  the walk's {n * (n + 1)} sumcheck rounds: {gkr_big_rounds(n)} gkr_big_round and "
-        f"{2 * n} gkr_phase_tail launches, each round's transcript step inside them")
-
-
-#: device kernels of one fused 2^20 sumcheck prove and of one fused GKR round
-#: before the transcript kernels (PERF.md section 5: their eager chain)
-DEVICE_KERNELS_BEFORE = {"sumcheck prove": 13860, "GKR round": 1334}
-
-
 def phase_device_kernels(ctx, gctx) -> None:
-    """The device kernels of phase 4's warm 2^20 sumcheck prove and of phase
-    7's fused GKR phases, by the profiler: at most 3 a round + 10 for the
-    prove; for a GKR phase of 2^10 entries one (its gkr_phase_tail), of 2^20
-    entries one a round above ``fused_lazy.TAIL_MAX`` and a tail; then one whole fused layer with
-    its table building. Runs last: once the profiler has been on, every later
-    launch in the process costs the host more."""
-    n = GKR_NUM_VARS
+    """The device kernels of phase 3's warm 2^20 sumcheck prove and of fused
+    GKR phases, by the profiler: at most 3 a round + 10 for the prove; for a
+    GKR phase of 2^10 entries one (its gkr_phase_tail), of 2^20 entries one a
+    round above ``fused_lazy.TAIL_MAX`` and a tail. Runs last: once the
+    profiler has been on, every later launch in the process costs the host
+    more."""
     poly = MultilinearPoly.from_ints(ctx, benchmark_values(NUM_VARS))
     fused.prove(poly)
     before = tk.launches["round_step"]
     kernels = count_device_kernels(lambda: fused.prove(poly))
     check(tk.launches["round_step"] - before == NUM_VARS, "a prove is not a round_step a round")
-    say(f"  one fused 2^{NUM_VARS} sumcheck prove (phase 4's): {kernels} device kernels "
-        f"(before the transcript kernels: {DEVICE_KERNELS_BEFORE['sumcheck prove']})")
+    say(f"  one fused 2^{NUM_VARS} sumcheck prove (phase 3's): {kernels} device kernels")
     check(kernels <= 3 * NUM_VARS + 10, f"{kernels} device kernels in a prove")
     del poly
 
@@ -1058,27 +851,13 @@ def phase_device_kernels(ctx, gctx) -> None:
         kernels = count_device_kernels(lambda: fused_lazy._device_phase(gctx, tables, consts))
         want = {"gkr_big_round": phase_big_rounds(log_size), "gkr_phase_tail": 1}
         say(f"  one fused GKR phase of {log_size} rounds: {kernels} device kernels, launches "
-            f"{gk.launches} (before the transcript kernels: {DEVICE_KERNELS_BEFORE['GKR round']} "
-            f"a round; 4 a round before the phase kernels)")
+            f"{gk.launches}")
         check(gk.launches == want and kernels == sum(want.values()),
               f"a GKR phase of 2^{log_size} entries: {kernels} device kernels for {gk.launches}")
 
-    w_vars = 6
-    layer_inputs = [int(v) for v in rng.integers(0, 1 << 61, size=1 << w_vars)]
-    w_poly = MultilinearPoly.from_ints(gctx, layer_inputs)
-    fbc = gkr_lazy.LazyFbc(
-        gctx, gkr_lazy._encode(gctx, list(range(1, 1 + (1 << (w_vars - 1))))),
-        gkr_lazy._encode(gctx, list(range(7, 7 + (1 << (w_vars - 1))))), w_poly)
-    kernels = count_device_kernels(
-        lambda: fused_lazy.gkr_prove_lazy_fused(0, fbc, copy.deepcopy(transcript)))
-    rounds = 2 * w_vars
-    say(f"  one fused layer of {rounds} rounds ({1 << w_vars} inputs, its tables built): "
-        f"{kernels} device kernels, {kernels / rounds:.0f} a round; at that rate the "
-        f"{n * (n + 1)} rounds of a 2^{n} proof launch about {kernels / rounds * n * (n + 1):.0f}")
-
 
 # ----------------------------------------------------------------------
-# the G1 point kernels: inputs, comparison, times
+# the G1 point kernels: inputs and comparison
 # ----------------------------------------------------------------------
 
 def random_scalars(rng, n: int, device):
@@ -1175,65 +954,8 @@ def phase_point_kernels_vs_plain() -> dict[str, int]:
     return worst
 
 
-def phase_point_kernel_times() -> dict[int, dict[str, dict]]:
-    fq = fb.get_ctx(BLS12_381_FQ)
-    rng = np.random.default_rng(6)
-    flush = torch.empty(256 << 20, dtype=torch.int8, device=fq.device)
-    out = {}
-    for n in POINT_TIME_WIDTHS:
-        p1, p2 = random_points(rng, n, fq.device), random_points(rng, n, fq.device)
-        cases = {
-            "point_add": (lambda: pk.point_add(fq, p1, p2), lambda: pk.point_add_plain(fq, p1, p2)),
-            "point_double": (lambda: pk.point_double(fq, p1),
-                             lambda: pk.point_double_plain(fq, p1)),
-        }
-        out[n] = {}
-        for name, (kernel, plain) in cases.items():
-            cold = time_events(kernel, TIMED_RUNS, flush)
-            warm = time_events(kernel, TIMED_RUNS)
-            plain_ms = time_events(plain, 3, flush)
-            b = roofline.bound(*roofline.POINT_KERNEL_COSTS[name](n))
-            rec = {"ms": cold, "warm_ms": warm, "plain_ms": plain_ms,
-                   "bound_ms": b.ms, "bound_by": b.by}
-            out[n][name] = rec
-            say(f"  {name} 2^{n.bit_length() - 1} lanes: {cold:.4f} ms cold L2 (before the redesign: "
-                f"{POINT_MS_BEFORE[name, n]:.4f}), {warm:.4f} ms warm, plain {plain_ms:.2f} ms, "
-                f"bound {rec['bound_ms']:.4f} ms by {rec['bound_by']} (bytes {b.bytes_ms:.4f} ms, "
-                f"operations {b.ops_ms:.4f} ms; {rec['bound_ms'] / cold:.1%} of it)")
-    # the Horner chain's shapes: one thread's latency and a launch
-    for n in HORNER_WIDTHS:
-        p1, p2 = random_points(rng, n, fq.device), random_points(rng, n, fq.device)
-        add_ms = time_events(lambda: pk.point_add(fq, p1, p2), TIMED_RUNS)
-        dbl_ms = [time_events(lambda: pk.point_double(fq, p1, times), TIMED_RUNS)
-                  for times in HORNER_TIMES]
-        say(f"  width {n}: point_add {add_ms:.4f} ms; point_double times "
-            + ", ".join(f"{t}: {ms:.4f} ms" for t, ms in zip(HORNER_TIMES, dbl_ms))
-            + " (CUDA events, L2 warm)")
-    # the compaction's shape at 2^20: the first 3/4 of the lanes (digit-0
-    # windows, sorted first) infinite on both sides
-    n = POINT_TIME_WIDTHS[-1]
-    p1, p2 = random_points(rng, n, fq.device), random_points(rng, n, fq.device)
-    for pt in (p1, p2):
-        pt[2][: 3 * n // 4] = 0
-    cold = time_events(lambda: pk.point_add(fq, p1, p2), TIMED_RUNS, flush)
-    # products only on the finite quarter
-    b = roofline.bound(roofline.point_add_cost(n)[0], roofline.point_add_cost(n // 4)[1])
-    say(f"  point_add 2^20 lanes, 75 % infinite in one run: {cold:.4f} ms cold L2; bound "
-        f"{b.ms:.4f} ms (bytes of every lane {b.bytes_ms:.4f} ms, operations of the finite "
-        f"quarter {b.ops_ms:.4f} ms)")
-    # mont_mul at W = 12, the word count of this path's field
-    for n in POINT_TIME_WIDTHS:
-        table = random_table(fq, rng, n)
-        cold = time_events(lambda: fk.mont_mul(fq, table, fq.r2), TIMED_RUNS, flush)
-        plain_ms = time_events(lambda: fk.mont_mul_plain(fq, table, fq.r2), 3, flush)
-        b = roofline.bound(*roofline.mont_mul_cost(n, 12))
-        say(f"  mont_mul W=12 2^{n.bit_length() - 1}: {cold:.4f} ms cold L2, plain {plain_ms:.2f} ms, "
-            f"bound {b.ms:.4f} ms (bytes {b.bytes_ms:.4f} ms, operations {b.ops_ms:.4f} ms)")
-    return out
-
-
 # ----------------------------------------------------------------------
-# phases 8 to 10: the whole GKR proof with its KZG input proof
+# phases 8 and 9: the whole GKR proof with its KZG input proof
 # ----------------------------------------------------------------------
 
 def reset_all_launches() -> None:
@@ -1286,23 +1008,12 @@ def phase_kzg_main_path(ctx, circuit, inputs, layers_launches):
     n = GKR_NUM_VARS
     taus = gkr_benchmark_taus(n)
     fixed_base._comb_table(ctx.device)  # the one-time table, as a running prover holds it
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     reset_all_launches()
-    t0 = time.time()
     proof = gkr.prove(circuit, inputs, taus=taus)
-    torch.cuda.synchronize()
-    t_prove = time.time() - t0
     prove_launches = all_launches()
-    peak = torch.cuda.max_memory_allocated()
-    t0 = time.time()
     ok = gkr.verify(proof, circuit)
-    torch.cuda.synchronize()
-    t_verify = time.time() - t0
     launches = all_launches()
-    say(f"  first run: prove {t_prove:.3f}s  verify {t_verify:.3f}s (the host's pairings included)")
     say(f"  launches on the KZG path: {launches}")
-    say(f"  peak device memory of prove: {peak / 1e9:.3f} GB (torch.cuda.max_memory_allocated)")
     check(ok, "verify refused the prover's proof")
 
     kzg = proof.input_proof
@@ -1331,7 +1042,6 @@ def phase_kzg_main_path(ctx, circuit, inputs, layers_launches):
     bad_point = hc.add(kzg.proof[0][n // 2], hc.G1_GEN)
     quotients = list(kzg.proof[0])
     quotients[n // 2] = bad_point
-    t0 = time.time()
     check(not gkr.verify(tampered(proof, proof=[quotients, kzg.proof[1]]), circuit),
           "a tampered quotient point was accepted")
     check(not gkr.verify(tampered(proof, commitment=hc.add(kzg.commitment, hc.G1_GEN)), circuit),
@@ -1339,8 +1049,17 @@ def phase_kzg_main_path(ctx, circuit, inputs, layers_launches):
     check(not gkr.verify(
         tampered(proof, opened_evals=[(kzg.opened_evals[0] + 1) % p, kzg.opened_evals[1]]), circuit),
         "a tampered opened evaluation was accepted")
-    say(f"  tampered quotient point, commitment and opened evaluation refused "
-        f"({time.time() - t0:.1f}s, the first two by the host's pairings)")
+    say("  tampered quotient point, commitment and opened evaluation refused (the first two "
+        "by the host's pairings)")
+    for _ in range(WARM_RUNS):
+        again = gkr.prove(circuit, inputs, taus=taus)
+    check(same_input_proof(again.input_proof, kzg), "a warm proof differs from the first")
+    walked = gkr.verify_layers(again, circuit, tuple(again.input_proof.opened_evals))
+    kp = again.input_proof
+    check(KZG.verify(kp.commitment, kp.opened_evals[0], kp.proof[0], walked.r_b,
+                     kp.kzg_setup.g2_taus), "KZG.verify refused the opening at r_b")
+    say(f"  {WARM_RUNS} warm proofs; the last input proof == the first, its opening at r_b "
+        "accepted by KZG.verify")
     return proof, taus, launches
 
 
@@ -1368,7 +1087,6 @@ def phase_kzg_ties(ctx, inputs, proof, taus, layers_proved) -> None:
     say("  layer walk of prove == prove_layers; opened evaluations == its input evaluations")
 
     input_poly = MultilinearPoly.from_ints(ctx, inputs)
-    t0 = time.time()
     check(kzg.commitment == hc.multiply(hc.G1_GEN, input_poly.evaluate_int(taus)),
           "the commitment is not input_poly(taus) * G1")
     for side, point in ((0, layers_proved.r_b), (1, layers_proved.r_c)):
@@ -1378,7 +1096,7 @@ def phase_kzg_ties(ctx, inputs, proof, taus, layers_proved) -> None:
             want = hc.multiply(hc.G1_GEN, q_at_tau) if q_at_tau else None
             check(kzg.proof[side][k] == want, f"quotient {k} of opening {side} is not q_k(taus) * G1")
     say(f"  commitment == input_poly(taus) * G1; all {2 * n} quotient commitments == "
-        f"q_k(tau_k+1..) * G1 by the host's scalar multiplication ({time.time() - t0:.1f}s)")
+        f"q_k(tau_k+1..) * G1 by the host's scalar multiplication")
 
     rows = sorted({0, 1, 12345 % (1 << n), (1 << n) // 3, (1 << n) - 1})
     idx = torch.tensor(rows, device=ctx.device)
@@ -1427,77 +1145,14 @@ def phase_kzg_ties(ctx, inputs, proof, taus, layers_proved) -> None:
     tie_taus = gkr_benchmark_taus(KZG_CPU_TIE_INPUTS)
     on_card = gkr.prove(Circuit(ctx, structure), tie_inputs, taus=tie_taus)
     cpu_ctx = fb.get_ctx(ctx.spec, device="cpu")
-    t0 = time.time()
     on_cpu = gkr.prove(Circuit(cpu_ctx, structure), tie_inputs, taus=tie_taus)
     check(same_input_proof(on_card.input_proof, on_cpu.input_proof),
           f"2^{KZG_CPU_TIE_INPUTS} input proof on the card differs from the CPU's")
-    say(f"  2^{KZG_CPU_TIE_INPUTS} input proof on the card == on the CPU "
-        f"(the CPU's plain path took {time.time() - t0:.1f}s)")
-
-
-def timed(fn):
-    torch.cuda.synchronize()
-    t0 = time.time()
-    out = fn()
-    torch.cuda.synchronize()
-    return out, time.time() - t0
-
-
-def phase_kzg_times(ctx, circuit, inputs, proof, taus) -> float:
-    n = GKR_NUM_VARS
-    proves = []
-    for _ in range(3):
-        again, t = timed(lambda: gkr.prove(circuit, inputs, taus=taus))
-        proves.append(t)
-    check(same_input_proof(again.input_proof, proof.input_proof), "a warm proof differs from the first")
-    t_prove = statistics.median(proves)
-    say(f"  warm GKR 2^{n} inputs: prove {t_prove:.4f}s (median of 3, host clock, "
-        f"synchronised; runs {' '.join(f'{t:.3f}' for t in proves)})")
-
-    # the stages, each alone and synchronised
-    (layers, input_poly), t_walk = timed(
-        lambda: gkr._walk_layers(circuit, inputs, None, None))
-    kzg, t_setup = timed(lambda: KZG.for_poly(input_poly, taus))
-    (o_b, o_c), t_open = timed(
-        lambda: (kzg.open(layers.r_b, input_poly), kzg.open(layers.r_c, input_poly)))
-    _, t_commit = timed(lambda: kzg.commit(input_poly))
-    _, t_chain = timed(kzg.collapsed_bases)
-    quotients, t_quot = timed(lambda: (kzg._quotients(o_b, layers.r_b, input_poly),
-                                       kzg._quotients(o_c, layers.r_c, input_poly)))
-    _, t_msms = timed(lambda: kzg._commit_quotients(*quotients))
-    bases = kzg.collapsed_bases()
-    t_steps = [timed(lambda: pp.msm_pippenger_multi(bases[k], torch.stack([q[k] for q in quotients])))[1]
-               for k in range(n)]
-    total = t_walk + t_setup + t_open + t_commit + t_chain + t_quot + t_msms
-    say(f"  stages of prove, each alone: layer walk {t_walk:.3f}s, KZG set-up (eq table, comb, "
-        f"g2 taus on the host) {t_setup:.3f}s, opens {t_open:.3f}s, commit MSM {t_commit:.3f}s, "
-        f"basis chain {t_chain:.3f}s, quotient tables {t_quot:.3f}s, quotient MSMs {t_msms:.3f}s; "
-        f"sum {total:.3f}s")
-    say(f"  each quotient step's batched MSM alone (2 x 2^({n - 1}-k) points, c): " + ", ".join(
-        f"{k}: {t * 1e3:.1f} ms (c={pp.pick_window_bits_multi(2, 1 << (n - 1 - k))})"
-        for k, t in enumerate(t_steps)))
-
-    t0 = time.time()
-    walked = gkr.verify_layers(proof, circuit, tuple(proof.input_proof.opened_evals))
-    torch.cuda.synchronize()
-    t_layers = time.time() - t0
-    t0 = time.time()
-    kp = proof.input_proof
-    check(KZG.verify(kp.commitment, kp.opened_evals[0], kp.proof[0], walked.r_b,
-                     kp.kzg_setup.g2_taus), "KZG.verify refused the opening at r_b")
-    t_pair = 2 * (time.time() - t0)
-    say(f"  verify: layer walk {t_layers:.3f}s on the card, pairings {t_pair:.3f}s on the host "
-        f"(two openings of {n} + 1 Miller loops and one final exponentiation each; one timed, doubled)")
-
-    _, syncs = count_syncs(lambda: gkr.prove(circuit, inputs, taus=taus))
-    _, syncs_kzg = count_syncs(lambda: kzg.commit_with_proof_pair(
-        (o_b, layers.r_b), (o_c, layers.r_c), input_poly))
-    say(f"  synchronising calls: prove {syncs}, of which commit + both proofs {syncs_kzg}")
-    return t_prove
+    say(f"  2^{KZG_CPU_TIE_INPUTS} input proof on the card == on the CPU")
 
 
 # ----------------------------------------------------------------------
-# phases 11 to 13: the NTT
+# phases 11 and 12: the NTT
 # ----------------------------------------------------------------------
 
 def phase_ntt_kernels_vs_plain() -> dict[str, int]:
@@ -1578,38 +1233,31 @@ def launched(fn):
 
 def phase_ntt_main_path(ctx):
     spec = ctx.spec
-    set_up = {}
-    for log_n in NTT_LOG_SIZES:
-        set_up[log_n] = timed(lambda: ntt_benchmark(ctx, log_n))
-    say("  set-up (draw, host ints, upload, to_mont): "
-        + ", ".join(f"2^{k} {t:.3f}s" for k, (_, t) in set_up.items()))
-
+    set_up = {log_n: ntt_benchmark(ctx, log_n) for log_n in NTT_LOG_SIZES}
     reset_all_launches()
     results = {}
     for log_n in NTT_LOG_SIZES:
-        x = set_up[log_n][0][0]
+        x = set_up[log_n][0]
         for first in (True, False):
-            (fwd, got_f), t_f = timed(lambda: launched(lambda: tn.ntt(ctx, x)))
-            (back, got_b), t_b = timed(lambda: launched(lambda: tn.ntt(ctx, fwd, inverse=True)))
+            fwd, got_f = launched(lambda: tn.ntt(ctx, x))
+            back, got_b = launched(lambda: tn.ntt(ctx, fwd, inverse=True))
             for got, inverse in ((got_f, False), (got_b, True)):
                 want = ntt_expected(log_n, inverse, first)
                 check(got == want, f"launches of {'first' if first else 'warm'} ntt 2^{log_n} "
                       f"inverse={inverse}: {got} != {want}")
-            say(f"  2^{log_n} {'first' if first else 'warm '}: ntt {t_f:.4f}s, inverse {t_b:.4f}s "
-                f"(host clock, synchronised); launches {got_f} / {got_b}")
-        results[log_n] = (x, set_up[log_n][0][1], fwd, back)
+            say(f"  2^{log_n} {'first' if first else 'warm '}: launches {got_f} / {got_b}")
+        results[log_n] = (x, set_up[log_n][1], fwd, back)
 
     log_n = NTT_LOG_SIZES[0]
     poly = UnivariatePoly(spec, results[log_n][1])
-    (evals, got_e), t_e = timed(lambda: launched(lambda: tn.fft_evaluate(poly)))
-    (interp, got_i), t_i = timed(lambda: launched(lambda: tn.fft_interpolate(spec, evals)))
+    evals, got_e = launched(lambda: tn.fft_evaluate(poly))
+    interp, got_i = launched(lambda: tn.fft_interpolate(spec, evals))
     stages = log_n - nk.LOG_TILE
     check(got_e == {"ntt_phase1": 1, "ntt_stage": stages, "mont_mul": 2},
           f"launches of fft_evaluate: {got_e}")
     check(got_i == {"ntt_phase1": 1, "ntt_stage": stages, "mont_mul": 3},
           f"launches of fft_interpolate: {got_i}")
     launches = all_launches()
-    say(f"  2^{log_n} fft_evaluate {t_e:.3f}s, fft_interpolate {t_i:.3f}s (host ints in and out)")
     say(f"  launches on the NTT path: {launches}")
     check(all(v == 0 for k, v in launches.items() if k not in nk.KERNEL_NAMES + ("mont_mul",)),
           "the NTT path launched another path's kernel")
@@ -1625,14 +1273,12 @@ def phase_ntt_ties(ctx, results, poly, evals, interp) -> None:
         rows = [0, 1, n // 2, int(np.random.default_rng(0).integers(2, n))]
         omega = spec.root_of_unity(n)
         got = [int(v) for v in ctx.unpack(fk.from_mont(ctx, fwd[rows].contiguous()))]
-        t0 = time.time()
         host = UnivariatePoly(spec, coeffs)
         want = [host.evaluate(pow(omega, i, p)) for i in rows]
         check(got == want, f"ntt outputs {rows} at 2^{log_n} are not the host's Horner evaluations")
         if log_n == NTT_LOG_SIZES[0]:
             check([evals[i] for i in rows] == want, "fft_evaluate differs from ntt")
-        say(f"  2^{log_n}: inverse(ntt(x)) == x; outputs {rows} == Horner at w^i "
-            f"({time.time() - t0:.1f}s on the host)")
+        say(f"  2^{log_n}: inverse(ntt(x)) == x; outputs {rows} == Horner at w^i")
     check(interp.coefficients == poly.coefficients,
           "fft_interpolate(fft_evaluate(poly)) is not poly")
     say(f"  fft_interpolate(fft_evaluate(poly)) == poly at 2^{NTT_LOG_SIZES[0]}")
@@ -1643,82 +1289,6 @@ def phase_ntt_ties(ctx, results, poly, evals, interp) -> None:
         check(torch.equal(tn.ntt(ctx, x, inverse).cpu(), tn.ntt(cpu, x.cpu(), inverse)),
               f"2^{NTT_CPU_TIE_LOG} ntt on the card differs from the CPU's (inverse={inverse})")
     say(f"  2^{NTT_CPU_TIE_LOG} ntt and inverse on the card == on the CPU")
-
-
-def ntt_record(cold, warm, plain_ms, nbytes, mads) -> dict:
-    b = roofline.bound(nbytes, mads)
-    return {"ms": cold, "warm_ms": warm, "plain_ms": plain_ms, "bound_ms": b.ms,
-            "bound_by": b.by, "bytes_ms": b.bytes_ms, "ops_ms": b.ops_ms}
-
-
-def phase_ntt_times(ctx, results) -> dict[int, dict[str, dict]]:
-    """Each kernel alone at both sizes (ntt_stage: every stage of a transform,
-    and their mean as the kernel's record), the twiddle build, warm transforms,
-    fft_evaluate / fft_interpolate with the host packing apart."""
-    flush = torch.empty(256 << 20, dtype=torch.int8, device=ctx.device)
-    out = {}
-    for log_n in NTT_LOG_SIZES:
-        x = results[log_n][0]
-        tw = nk.stage_twiddles(ctx, log_n, False)
-        log_tile = min(nk.LOG_TILE, log_n)
-        recs = {}
-        rec = ntt_record(
-            time_events(lambda: nk.ntt_phase1(ctx, x, tw, log_tile), TIMED_RUNS, flush),
-            time_events(lambda: nk.ntt_phase1(ctx, x, tw, log_tile), TIMED_RUNS),
-            time_events(lambda: nk.ntt_phase1_plain(ctx, x, tw, log_tile), 3, flush),
-            *roofline.ntt_phase1_cost(log_n))
-        recs["ntt_phase1"] = rec
-        say(f"  ntt_phase1 2^{log_n}: {rec['ms']:.4f} ms cold L2 (before the redesign: "
-            f"{KERNEL_MS_BEFORE['ntt_phase1', 1 << log_n]:.4f}), {rec['warm_ms']:.4f} ms warm, "
-            f"plain {rec['plain_ms']:.2f} ms, bound {rec['bound_ms']:.4f} ms by {rec['bound_by']} "
-            f"(bytes {rec['bytes_ms']:.4f} ms, operations {rec['ops_ms']:.4f} ms; "
-            f"{rec['bound_ms'] / rec['ms']:.1%} of it)")
-        stage_recs = []
-        for stage in range(log_tile + 1, log_n + 1):
-            rec = ntt_record(
-                time_events(lambda: nk.ntt_stage(ctx, x, tw, stage), TIMED_RUNS, flush),
-                time_events(lambda: nk.ntt_stage(ctx, x, tw, stage), TIMED_RUNS),
-                time_events(lambda: nk.ntt_stage_plain(ctx, x, tw, stage), 3, flush),
-                *roofline.ntt_stage_cost(log_n, stage))
-            stage_recs.append(rec)
-            say(f"  ntt_stage 2^{log_n} stage {stage}: {rec['ms']:.4f} ms cold L2, "
-                f"{rec['warm_ms']:.4f} ms warm, plain {rec['plain_ms']:.2f} ms, "
-                f"bound {rec['bound_ms']:.4f} ms by {rec['bound_by']}")
-        mean = {k: statistics.fmean(r[k] for r in stage_recs)
-                for k in ("ms", "warm_ms", "plain_ms", "bound_ms", "bytes_ms", "ops_ms")}
-        mean["bound_by"] = "bytes" if mean["bytes_ms"] >= mean["ops_ms"] else "operations"
-        recs["ntt_stage"] = mean
-        say(f"  ntt_stage 2^{log_n}, mean of {len(stage_recs)} stages: {mean['ms']:.4f} ms cold, "
-            f"bound {mean['bound_ms']:.4f} ms, plain {mean['plain_ms']:.2f} ms; all "
-            f"{len(stage_recs)} together {sum(r['ms'] for r in stage_recs):.4f} ms")
-
-        builds = {inverse: time_events(lambda: nk.build_twiddles(ctx, log_n, inverse), TIMED_RUNS)
-                  for inverse in (False, True)}
-        t_fwd = time_events(lambda: tn.ntt(ctx, x), TIMED_RUNS, flush)
-        t_inv = time_events(lambda: tn.ntt(ctx, x, inverse=True), TIMED_RUNS, flush)
-        bound = sum(roofline.bound(*cost).ms for cost in roofline.ntt_cost(log_n))
-        say(f"  ntt 2^{log_n} warm: forward {t_fwd:.4f} ms, inverse {t_inv:.4f} ms (cold L2; "
-            f"bound of the kernels {bound:.4f} ms); twiddle build alone (log_n - 1 = "
-            f"{log_n - 1} mont_mul launches and their uploads) {builds[False]:.4f} ms forward, "
-            f"{builds[True]:.4f} ms inverse")
-        out[log_n] = recs
-        torch.cuda.empty_cache()
-
-    log_n = NTT_LOG_SIZES[0]
-    poly = UnivariatePoly(ctx.spec, results[log_n][1])
-    evals, t_e = timed(lambda: tn.fft_evaluate(poly))
-    _, t_i = timed(lambda: tn.fft_interpolate(ctx.spec, evals))
-    words, t_pack = timed(lambda: ctx.pack(poly.coefficients))
-    table, t_up = timed(lambda: ctx.to_device(words))
-    _, t_down = timed(lambda: [int(v) for v in ctx.unpack(table)])
-    say(f"  2^{log_n} fft_evaluate {t_e:.3f}s, fft_interpolate {t_i:.3f}s (host clock); of each, "
-        f"host packing of the ints {t_pack:.3f}s, upload {t_up:.4f}s, download and unpacking "
-        f"{t_down:.3f}s")
-    return out
-
-
-def all_lanes() -> dict[str, int]:
-    return {**fk.lanes, **pk.lanes, **nk.lanes, **tk.lanes, **mk.lanes, **gk.lanes}
 
 
 #: run_scan's two device kernels, one of each a launch: the one pass over the
@@ -1770,9 +1340,7 @@ def scan_op_runs(kernel_names: dict[str, int]) -> dict[str, int]:
 #: fall inside its window; late in this process a profile of the mesh path has
 #: come up a few MSM records short at a time (2 of 667 compact_add, 1 of 57
 #: horner), as if its clock had drifted from the host's past the edge of a
-#: window closed at once. ``edges_ms`` reports how far the first record starts
-#: after the run began and the last ends before the run's end, on the host's
-#: clock.
+#: window closed at once.
 PROFILE_PAD_S = 0.5
 #: profiles of the mesh path taken at most, while the tracer's counts only fall
 #: short of the launches
@@ -1781,65 +1349,37 @@ PROFILE_TRIES = 3
 
 def profile_path(fn) -> dict:
     """Run ``fn`` once under torch.profiler (device activity only): its
-    launches, lanes and point doublings by kernel, and the device milliseconds
-    of each kernel, summed by the device function's name (``finish_rows``, the
-    second pass of the three summing kernels, and run_scan's two kernels
-    apart; run_scan's time is their sum), and the device kernels of
-    torch.cummax and torch.searchsorted that ran. The window opens
-    PROFILE_PAD_S before the run and closes PROFILE_PAD_S after it;
-    ``seconds`` is the run's own."""
+    launches by kernel, the device kernels that ran by the device function's
+    name (``finish_rows``, the second pass of the three summing kernels, and
+    run_scan's two kernels apart), and the device kernels of torch.cummax and
+    torch.searchsorted that ran. The window opens PROFILE_PAD_S before the run
+    and closes PROFILE_PAD_S after it."""
     from torch.profiler import ProfilerActivity, profile
 
     reset_all_launches()
     torch.cuda.synchronize()
-    t0 = time.time()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         time.sleep(PROFILE_PAD_S)
-        start_ns = time.time_ns()
         fn()
         torch.cuda.synchronize()
-        end_ns = time.time_ns()
         time.sleep(PROFILE_PAD_S)
-    t_run = (end_ns - start_ns) / 1e9
     names = (fk.KERNEL_NAMES + pk.KERNEL_NAMES + nk.KERNEL_NAMES + tk.KERNEL_NAMES
              + mk.KERNEL_NAMES + gk.KERNEL_NAMES + gt.KERNEL_NAMES + ("finish_rows",)
              + SCAN_PASSES)
-    device_ms = {name: 0.0 for name in names}
     device_n = {name: 0 for name in names}
     pattern = re.compile(r"\b(" + "|".join(names) + r")_kernel\b")
     kernel_names: dict[str, int] = {}
-    first_ns, last_ns = None, None
     # the raw events, not key_averages(): a path launches up to some 600,000
     # kernels, and building the averaged tree takes minutes
     for e in prof.profiler.kineto_results.events():
         if e.device_type().name == "CUDA":
             name = e.name()
-            begin, end = e.start_ns(), e.start_ns() + e.duration_ns()
-            first_ns = begin if first_ns is None else min(first_ns, begin)
-            last_ns = end if last_ns is None else max(last_ns, end)
             kernel_names[name] = kernel_names.get(name, 0) + 1
             found = pattern.search(name)
             if found:
-                device_ms[found.group(1)] += e.duration_ns() / 1e6
                 device_n[found.group(1)] += 1
-    device_ms["run_scan"] = sum(device_ms[name] for name in SCAN_PASSES)
-    return {"launches": all_launches(), "lanes": all_lanes(), "doublings": pk.doublings,
-            "rounds": dict(tk.rounds), "scan_slots": mk.scan_slots, "chains": dict(mk.chains),
-            "phase_calls": dict(gk.calls),
-            "device_ms": device_ms, "device_n": device_n, "scan_ops": scan_op_runs(kernel_names),
-            "seconds": t_run, "total_s": time.time() - t0,
-            "edges_ms": (None if first_ns is None else
-                         ((first_ns - start_ns) / 1e6, (end_ns - last_ns) / 1e6))}
-
-
-def edges(p: dict) -> str:
-    """How far inside the profiled run its device records lie, on the host's
-    clock (``profile_path``'s ``edges_ms``)."""
-    if p["edges_ms"] is None:
-        return "no device records"
-    head, tail = p["edges_ms"]
-    return (f"device records from {head:.3f} ms after the run's start to {tail:.3f} ms before "
-            f"its end, host clock")
+    return {"launches": all_launches(), "device_n": device_n,
+            "scan_ops": scan_op_runs(kernel_names)}
 
 
 def msm_launch_faults(path: str, p: dict) -> list[str]:
@@ -1914,56 +1454,6 @@ def check_one_launch(profiles: dict[str, dict]) -> None:
             f"run_scan kernels {[p['device_n'][name] for name in SCAN_PASSES]}, compact_add "
             f"{p['device_n']['compact_add']}, horner {p['device_n']['horner']}, "
             f"scan ops {p['scan_ops']}" for path, p in profiles.items()))
-
-
-def print_ranking(kernels: list[dict], profiles: dict[str, dict]) -> list[dict]:
-    """The sixteen kernels ranked by device ms on the four paths (one profiled run
-    of each) less the bound of the lanes they covered there; then, for
-    comparison, the earlier ranking (launches x (ms - bound_ms) at each row's
-    size), which prices every launch at the row's width."""
-    # round_step's launches, horner's segments and the GKR phase kernels'
-    # launches by kind
-    rounds, chains, phase_calls = {}, {}, {}
-    for p in profiles.values():
-        for kind, n in p["rounds"].items():
-            rounds[kind] = rounds.get(kind, 0) + n
-        for kind, n in p["chains"].items():
-            chains[kind] = chains.get(kind, 0) + n
-        for kind, n in p["phase_calls"].items():
-            phase_calls[kind] = phase_calls.get(kind, 0) + n
-    scan_slots = sum(p["scan_slots"] for p in profiles.values())
-    rows = []
-    for k in kernels:
-        name = k["name"]
-        launches = sum(p["launches"][name] for p in profiles.values())
-        lanes = sum(p["lanes"][name] for p in profiles.values())
-        doublings = sum(p["doublings"] for p in profiles.values()) if name == "point_double" else 0
-        device = sum(p["device_ms"][name] for p in profiles.values())
-        bound = roofline.lanes_bound_ms(name, lanes, doublings, rounds=rounds,
-                                        scan_slots=scan_slots, chains=chains,
-                                        phase_calls=phase_calls)
-        rows.append({"name": name, "launches": launches, "lanes": lanes, "device_ms": device,
-                     "bound_ms": bound, "loss_ms": device - bound})
-    rows.sort(key=lambda r: -r["loss_ms"])
-    say("  kernels at real widths, by device ms on the paths - bound of their lanes "
-        "(point_add's bound counts every lane as finite, compact_add's prices no addition):")
-    for r in rows:
-        say(f"    {r['name']}: {r['launches']} launches, {r['lanes']} lanes, {r['device_ms']:.3f} "
-            f"device ms, bound {r['bound_ms']:.3f} ms, loss {r['loss_ms']:.3f} ms")
-    finish = sum(p["device_ms"]["finish_rows"] for p in profiles.values())
-    say(f"    (finish_rows, gkr_round's second pass: {finish:.3f} device ms; launches by path: "
-        + ", ".join(f"{path} {p['device_n']['finish_rows']}" for path, p in profiles.items())
-        + ")")
-    say("  by path: " + "; ".join(
-        f"{path} ({p['seconds']:.1f}s profiled, {p['total_s']:.1f}s with the summary; "
-        f"{edges(p)}): "
-        + ", ".join(f"{n} {v:.2f}" for n, v in p["device_ms"].items() if v)
-        for path, p in profiles.items()))
-    ranked = sorted(kernels, key=lambda k: -k["launches"] * (k["ms"] - k["bound_ms"]))
-    say("  earlier ranking, kernels by launches x (ms - bound_ms) at each row's size: " + "; ".join(
-        f"{k['name']} {k['launches']} x ({k['ms']:.4f} - {k['bound_ms']:.4f}) = "
-        f"{k['launches'] * (k['ms'] - k['bound_ms']):.1f} ms" for k in ranked))
-    return rows
 
 
 def phase_profiles(ctx, gctx, rctx, circuit, inputs, taus, ntt_inputs, ntt_poly) -> dict[str, dict]:
@@ -2067,11 +1557,9 @@ def phase_oracle() -> None:
     rng = np.random.default_rng(11)
     for spec, every_kernel in ORACLE_FIELDS:
         ctx = fb.get_ctx(spec)
-        t0 = time.time()
         bad = oracle_mismatches(ctx, rng, ORACLE_LOG_SIZE, every_kernel)
-        torch.cuda.synchronize()
         say(f"  {spec.name} (W = {ctx.num_words}), 2^{ORACLE_LOG_SIZE} entries: mismatches "
-            + " ".join(f"{k}={v}" for k, v in bad.items()) + f" ({time.time() - t0:.1f}s)")
+            + " ".join(f"{k}={v}" for k, v in bad.items()))
         for name, count in bad.items():
             check(count == 0, f"{name} differs from the oracle on {spec.name}")
 
@@ -2110,15 +1598,14 @@ def walk_of(proof, walk) -> gkr.LayersProof:
     return gkr.LayersProof(proof, walk.r_b, walk.r_c, tuple(proof.input_proof.opened_evals))
 
 
-def phase_proof_bytes(sum_proof, gkr_blob: bytes, gkr_encode_s: float, kept, circuit, walk) -> None:
+def phase_proof_bytes(sum_proof, gkr_blob: bytes, kept, circuit, walk) -> None:
     """The 2^20 sumcheck proof and the whole 2^20-input GKR proof as bytes:
     digest, round trips, the decoded proof against the one in memory (``kept``,
     without its device SRS), verify on the card, three tampered blobs."""
-    blob, t_enc = timed(lambda: ser.encode_sumcheck_proof(sum_proof, BN254_FQ))
-    back, t_dec = timed(lambda: ser.decode_sumcheck_proof(blob, BN254_FQ))
+    blob = ser.encode_sumcheck_proof(sum_proof, BN254_FQ)
+    back = ser.decode_sumcheck_proof(blob, BN254_FQ)
     digest = hk.keccak256(blob).hex()
-    say(f"  2^{NUM_VARS} sumcheck blob: {len(blob)} bytes, encode {t_enc * 1e3:.3f} ms, "
-        f"decode {t_dec * 1e3:.3f} ms; digest {digest}")
+    say(f"  2^{NUM_VARS} sumcheck blob: {len(blob)} bytes; digest {digest}")
     check(digest == SUMCHECK_BLOB_DIGEST_2E20,
           f"sumcheck blob digest differs from the stored {SUMCHECK_BLOB_DIGEST_2E20}")
     check(back == sum_proof and ser.encode_sumcheck_proof(back, BN254_FQ) == blob,
@@ -2126,16 +1613,15 @@ def phase_proof_bytes(sum_proof, gkr_blob: bytes, gkr_encode_s: float, kept, cir
     # both blobs hashed on the card as well: keccak256_device, a keccak_f launch a block
     for name, data in (("sumcheck", blob), ("GKR", gkr_blob)):
         before = tk.launches["keccak_f"]
-        on_card, t_card = timed(lambda: kd.digest_to_bytes(kd.keccak256_device(data, "cuda")))
+        on_card = kd.digest_to_bytes(kd.keccak256_device(data, "cuda"))
         blocks = len(data) // kd.RATE + 1
         check(on_card == hk.keccak256(data), f"the {name} blob's digest on the card differs")
         check(tk.launches["keccak_f"] - before == blocks, f"{name} blob: not a keccak_f a block")
-        say(f"  the {name} blob's digest on the card == the host's: {blocks} keccak_f launches, "
-            f"{t_card * 1e3:.1f} ms")
+        say(f"  the {name} blob's digest on the card == the host's: {blocks} keccak_f launches")
 
-    decoded, t_dec = timed(lambda: ser.decode_gkr_proof(gkr_blob))
-    say(f"  2^{GKR_NUM_VARS}-input GKR proof blob: {len(gkr_blob)} bytes, encode "
-        f"{gkr_encode_s * 1e3:.1f} ms, decode {t_dec * 1e3:.1f} ms (device None: the card)")
+    decoded = ser.decode_gkr_proof(gkr_blob)
+    say(f"  2^{GKR_NUM_VARS}-input GKR proof blob: {len(gkr_blob)} bytes, decoded onto the card "
+        "(device None)")
     check(decoded.output_poly.table.device == circuit.ctx.device,
           "the decoded output table is not on the card")
     check(ser.encode_gkr_proof(decoded) == gkr_blob, "the GKR blob does not round-trip")
@@ -2143,13 +1629,11 @@ def phase_proof_bytes(sum_proof, gkr_blob: bytes, gkr_encode_s: float, kept, cir
           and same_input_proof(decoded.input_proof, kept.input_proof)
           and decoded.input_proof.kzg_setup.g2_taus == kept.input_proof.kzg_setup.g2_taus,
           "the decoded GKR proof differs from the proof in memory")
-    ok, t_verify = timed(lambda: gkr.verify(decoded, circuit))
-    check(ok, "verify refused the GKR proof decoded from bytes")
-    say(f"  decoded GKR proof == the proof in memory; re-encodes to the same bytes; "
-        f"gkr.verify accepts it on the card ({t_verify:.1f}s)")
-    t0 = time.time()
+    check(gkr.verify(decoded, circuit), "verify refused the GKR proof decoded from bytes")
+    say("  decoded GKR proof == the proof in memory; re-encodes to the same bytes; "
+        "gkr.verify accepts it on the card")
     verdicts = {name: blob_verdict(bad, circuit) for name, bad in tampered_blobs(gkr_blob, kept).items()}
-    say(f"  tampered blobs: {verdicts} ({time.time() - t0:.1f}s)")
+    say(f"  tampered blobs: {verdicts}")
     for name, verdict in verdicts.items():
         check(verdict in ("raised", "refused"), f"a blob with a changed {name} was accepted")
 
@@ -2161,8 +1645,7 @@ def phase_proof_bytes(sum_proof, gkr_blob: bytes, gkr_encode_s: float, kept, cir
 def phase_batched_ntt_kernels_vs_plain() -> dict[str, int]:
     """ntt_phase1 (at the full tile) and every later ntt_stage on batches of
     tables, forward and inverse twiddles, word for word against the plain
-    versions; then each kernel's time on the 2^20- and 2^22-entry batches of
-    the four-step NTT beside its bound and the unbatched table's time."""
+    versions."""
     ctx = fb.get_ctx(BN254_FR)
     rng = np.random.default_rng(16)
     p = ctx.spec.modulus
@@ -2191,25 +1674,6 @@ def phase_batched_ntt_kernels_vs_plain() -> dict[str, int]:
     say("  batched ntt_phase1 and ntt_stage == their plain versions, forward and inverse, on "
         + ", ".join(f"{b} x 2^{k}" for k, b in NTT_BATCH_CHECKS))
 
-    flush = torch.empty(256 << 20, dtype=torch.int8, device=ctx.device)
-    for log_n, batch in NTT_BATCH_CHECKS[:2]:
-        x = random_table(ctx, rng, batch, 1 << log_n)
-        flat = x.reshape(batch << log_n, -1)
-        log_flat = flat.shape[0].bit_length() - 1
-        tw = nk.stage_twiddles(ctx, log_n, False)
-        tw_flat = nk.stage_twiddles(ctx, log_flat, False)
-        tile = min(nk.LOG_TILE, log_n)
-        ms = time_events(lambda: nk.ntt_phase1(ctx, x, tw, tile), TIMED_RUNS, flush)
-        alone = time_events(lambda: nk.ntt_phase1(ctx, flat, tw_flat, tile), TIMED_RUNS, flush)
-        b = roofline.bound(*roofline.ntt_phase1_cost(log_n, batch))
-        line = (f"  {batch} x 2^{log_n}: ntt_phase1 {ms:.4f} ms (bound {b.ms:.4f} by {b.by}; one "
-                f"table of 2^{log_flat}: {alone:.4f} ms)")
-        if log_n > nk.LOG_TILE:
-            ms = time_events(lambda: nk.ntt_stage(ctx, x, tw, log_n), TIMED_RUNS, flush)
-            b = roofline.bound(*roofline.ntt_stage_cost(log_n, log_n, batch))
-            line += f", ntt_stage {log_n} {ms:.4f} ms (bound {b.ms:.4f} by {b.by})"
-        say(line + " (CUDA events, median, L2 flushed)")
-        del x, flat
     return worst
 
 
@@ -2248,7 +1712,6 @@ def mesh_sumcheck(mesh, ctx, sum_proof):
     check(proof_digest(ctx.spec, sharded) == PROOF_DIGEST_2E20, "sharded proof digest differs")
     say(f"  2^{NUM_VARS} sumcheck_prove_sharded == phase 3's proof, digest {PROOF_DIGEST_2E20[:16]}..; "
         f"launches {got}")
-    return poly
 
 
 def mesh_ntt(mesh, rctx, ntt_outputs):
@@ -2273,66 +1736,35 @@ def mesh_commitment(mesh, gctx, inputs, taus, commitment):
     jac = pm.msm_pippenger_sharded(mesh, basis, scalars)
     check(dc.unpack_points(tuple(t[None] for t in jac))[0] == commitment,
           "msm_pippenger_sharded of the commitment differs from phase 8's")
-    ladder, t_ladder = timed(lambda: pm.msm_sharded(mesh, basis, scalars))
+    ladder = pm.msm_sharded(mesh, basis, scalars)
     check(dc.unpack_points(tuple(t[None] for t in ladder))[0] == commitment,
           "msm_sharded (the ladder) of the commitment differs from phase 8's")
-    say(f"  msm_pippenger_sharded and msm_sharded (the double-and-add ladder, {t_ladder:.3f}s) of "
-        f"the 2^{GKR_NUM_VARS}-point commitment == phase 8's commitment (window "
+    say(f"  msm_pippenger_sharded and msm_sharded (the double-and-add ladder) of the "
+        f"2^{GKR_NUM_VARS}-point commitment == phase 8's commitment (window "
         f"{pp.pick_window_bits((1 << GKR_NUM_VARS) // mesh.size)} a slot)")
-    return basis, scalars
-
-
-def mesh_times(mesh, ctx, rctx, poly, ntt_outputs, basis, scalars) -> None:
-    """Each sharded path's warm time beside the single device's (host clock,
-    synchronised, median of MESH_TIMED_RUNS; the NTT by CUDA events)."""
-    def warm(fn):
-        fn()
-        runs = [timed(fn)[1] for _ in range(MESH_TIMED_RUNS)]
-        return statistics.median(runs)
-
-    t_sharded = warm(lambda: pm.sumcheck_prove_sharded(poly, mesh))
-    t_single = warm(lambda: protocol.prove(poly))
-    t_fused = warm(lambda: fused.prove(poly))
-    say(f"  warm 2^{NUM_VARS} sumcheck: sharded {t_sharded:.4f}s, protocol.prove {t_single:.4f}s, "
-        f"fused.prove {t_fused:.4f}s")
-    t_sharded = warm(lambda: pm.msm_pippenger_sharded(mesh, basis, scalars))
-    t_single = warm(lambda: pp.msm_pippenger(basis, scalars))
-    say(f"  warm 2^{GKR_NUM_VARS}-point commitment MSM: sharded {t_sharded:.4f}s, "
-        f"msm_pippenger {t_single:.4f}s")
-    for log_n, (x, fwd) in ntt_outputs.items():
-        parts = []
-        for inverse, src in ((False, x), (True, fwd)):
-            ms = time_events(lambda: pm.ntt_sharded(rctx, mesh, src, inverse), TIMED_RUNS)
-            single = time_events(lambda: tn.ntt(rctx, src, inverse), TIMED_RUNS)
-            parts.append(f"{'inverse' if inverse else 'forward'} sharded {ms:.4f} ms, ntt {single:.4f} ms")
-        say(f"  warm 2^{log_n} NTT (CUDA events, median of {TIMED_RUNS}): " + "; ".join(parts))
 
 
 def phase_mesh_paths(ctx, gctx, rctx, sum_proof, circuit, inputs, taus, gkr_blob, commitment,
-                     ntt_outputs, t_prove_single):
+                     ntt_outputs):
     """The mesh paths on the one-card mesh of MESH_SLOTS slots and on the mesh of
-    every card present. Returns the launches of the paths (the timing reruns
-    after them not counted)."""
+    every card present. Returns the launches of the paths (the profiled rerun
+    not counted)."""
     meshes = [("4-slot", pm.make_mesh(devices=[torch.device("cuda", 0)] * MESH_SLOTS)),
               ("all-cards", pm.make_mesh())]
     launches = {name: 0 for name in all_launches()}
     for label, mesh in meshes:
         say(f"  -- {label} mesh: {mesh}")
-        t0 = time.time()
         reset_all_launches()
-        poly = mesh_sumcheck(mesh, ctx, sum_proof)
+        mesh_sumcheck(mesh, ctx, sum_proof)
         mesh_ntt(mesh, rctx, ntt_outputs)
-        basis, scalars = mesh_commitment(mesh, gctx, inputs, taus, commitment)
+        mesh_commitment(mesh, gctx, inputs, taus, commitment)
         if label == "4-slot":
-            proof, t_mesh = timed(lambda: gkr.prove(circuit, inputs, taus=taus, mesh=mesh))
-            blob = ser.encode_gkr_proof(proof)
+            blob = ser.encode_gkr_proof(gkr.prove(circuit, inputs, taus=taus, mesh=mesh))
             check(blob == gkr_blob, "gkr.prove(mesh=...) does not encode to phase 8's bytes")
             say(f"  gkr.prove(mesh=...) of the 2^{GKR_NUM_VARS}-input circuit encodes to phase 8's "
-                f"{len(blob)} bytes: {t_mesh:.3f}s (phase 10's warm prove {t_prove_single:.3f}s)")
-            del proof
-        seconds, t_dry = timed(lambda: dryrun_multichip(mesh))
-        say(f"  dryrun_multichip passes ({t_dry:.1f}s): "
-            + ", ".join(f"{k} {v:.3f}s" for k, v in seconds.items()))
+                f"{len(blob)} bytes")
+        dryrun_multichip(mesh)
+        say("  dryrun_multichip passes")
         got = all_launches()
         say(f"  launches on the {label} mesh's paths: {got}")
         for name, v in got.items():
@@ -2353,16 +1785,13 @@ def phase_mesh_paths(ctx, gctx, rctx, sum_proof, circuit, inputs, taus, gkr_blob
                     for name in ("compact_add", "horner") + SCAN_PASSES)
                 if not (faults and short) or attempt == PROFILE_TRIES:
                     break
-                say(f"  profile {attempt} fell short ({edges(prof)}): {faults}")
-            check(not faults, "; ".join(faults) + f" ({edges(prof)})")
+                say(f"  profile {attempt} fell short: {faults}")
+            check(not faults, "; ".join(faults))
             say(f"  gkr.prove(mesh=...) under the profiler: run_scan {prof['launches']['run_scan']}, "
                 f"compact_add {prof['launches']['compact_add']}, horner "
                 f"{prof['launches']['horner']} launches, one device kernel each (run_scan two); "
-                f"cummax and searchsorted kernels {prof['scan_ops']}; {edges(prof)}")
-        mesh_times(mesh, ctx, rctx, poly, ntt_outputs, basis, scalars)
-        del poly, basis, scalars
+                f"cummax and searchsorted kernels {prof['scan_ops']}")
         torch.cuda.empty_cache()
-        say(f"  {label} mesh: {time.time() - t0:.1f}s")
     return launches
 
 
@@ -2382,8 +1811,6 @@ ROUND_CHECKS = (
     + tuple((3, None, m) for m in range(4))
     + tuple((3, tail, m) for tail in (0, 8, 16) for m in range(4))
 )
-#: launches a transcript kernel is timed over, by the profiler's device clock
-TRANSCRIPT_TIMED_RUNS = 200
 
 
 def lane_err(a, b) -> int:
@@ -2417,47 +1844,8 @@ def round_check_inputs(ctx, rng, k: int, tail, m: int):
     return rows, state, None if tail is None else random_lanes(rng, tail, ctx.device)
 
 
-def device_ms(fn, kernel: str, runs: int = TRANSCRIPT_TIMED_RUNS) -> float:
-    """Median device milliseconds of ``kernel``'s launches over ``runs`` calls
-    of ``fn``, by the profiler's device clock: a launch of a one-thread kernel
-    takes microseconds, and a CUDA event pair around one call would time the
-    wrapper's host path instead."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    # late in a long process the tracer may drop a burst's records: the
-    # profile is taken again, up to PROFILE_TRIES times, while it holds fewer
-    # than half of them
-    for _ in range(PROFILE_TRIES):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(runs):
-                fn()
-            torch.cuda.synchronize()
-        durations = [e.duration_ns() for e in prof.profiler.kineto_results.events()
-                     if e.device_type().name == "CUDA" and f"{kernel}_kernel" in e.name()]
-        if runs // 2 <= len(durations):
-            break
-    check(runs // 2 <= len(durations) <= runs,
-          f"{kernel}: {len(durations)} device kernels traced for {runs} calls")
-    return statistics.median(durations) / 1e6
-
-
-def transcript_record(name: str, ms: float, plain_ms: float, cost, what: str) -> dict:
-    b = roofline.bound(*cost)
-    chain_ms = roofline.one_thread_ms(cost[1])
-    say(f"  {name}, {what}: {ms * 1e3:.3f} us a launch on the device, plain {plain_ms:.3f} ms, "
-        f"bound {b.ms * 1e6:.4f} ns by {b.by} (bytes {b.bytes_ms * 1e6:.4f} ns, operations "
-        f"{b.ops_ms * 1e6:.4f} ns), one thread's least time {chain_ms * 1e3:.3f} us "
-        f"({cost[1]} operations at one a cycle)")
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b.ms, "bound_by": b.by,
-            "one_thread_ms": chain_ms}
-
-
-def phase_transcript_kernels() -> tuple[dict[str, int], dict[str, dict]]:
-    """keccak_f and round_step against their plain versions, word for word, then
-    their times at the paths' shapes."""
-    t0 = time.time()
+def phase_transcript_kernels() -> dict[str, int]:
+    """keccak_f and round_step against their plain versions, word for word."""
     errs = {name: 0 for name in tk.KERNEL_NAMES}
     rng = np.random.default_rng(17)
     device = torch.device("cuda")
@@ -2487,32 +1875,7 @@ def phase_transcript_kernels() -> tuple[dict[str, int], dict[str, dict]]:
         say(f"  round_step, {spec.name}: {len(ROUND_CHECKS)} rounds (2 and 3 rows, trimmed "
             f"lengths 0-3, steady and first rounds of one and two blocks, low words at or above "
             f"p; {at_or_above_p} digests at or above p): max error {errs['round_step']}")
-
-    times = {}
-    state = random_lanes(rng, 25, device)
-    times["keccak_f"] = transcript_record(
-        "keccak_f", device_ms(lambda: tk.keccak_f(state), "keccak_f"),
-        time_events(lambda: tk.keccak_f_plain(state), 5), roofline.keccak_f_cost(1),
-        "one state (a block of keccak256_device)")
-    wide = random_lanes(rng, 25 * 4096, device).reshape(4096, 25)
-    transcript_record("keccak_f", device_ms(lambda: tk.keccak_f(wide), "keccak_f", 20),
-                      time_events(lambda: tk.keccak_f_plain(wide), 3),
-                      roofline.keccak_f_cost(4096), "4096 states")
-    gctx, sctx = fb.get_ctx(BLS12_381_FR), fb.get_ctx(BN254_FQ)
-    for label, ctx, k, tail in (("a steady GKR round", gctx, 3, None),
-                                ("a steady sumcheck round", sctx, 2, None),
-                                ("a GKR phase's first round, two blocks", gctx, 3, 16)):
-        rows, state, tail_lanes = round_check_inputs(ctx, rng, k, tail, 3)
-        rec = transcript_record(
-            "round_step", device_ms(lambda: tk.round_step(ctx, rows, state, tail_lanes),
-                                    "round_step"),
-            time_events(lambda: tk.round_step_plain(ctx, rows, state, tail_lanes), 5),
-            roofline.round_step_cost(k, 4 if tail is None else tail, 1 if tail is None else 2,
-                                     tail is not None), label)
-        times.setdefault("round_step", rec)
-    torch.cuda.synchronize()
-    say(f"  (phase 17 took {time.time() - t0:.1f}s)")
-    return errs, times
+    return errs
 
 
 # ----------------------------------------------------------------------
@@ -2532,14 +1895,14 @@ CROSSING_RUNS = (1, 2, 3, 15, 16, 17, 31, 33, 4095, 4096, 4097, 8193)
 #: horner against its plain version: segments, window widths, points a segment;
 #: below c = 16 over the most significant windows only (a plain chain is some
 #: 250 doublings of about 0.1 s each on the card, launch-bound; the whole
-#: chains at c = 4 and 8 are held against the eager chain in the timings)
+#: chains at c = 4 and 8 are held against the eager chain, HORNER_EAGER_SHAPES)
 HORNER_CHECK_SEGMENTS = (1, 2, 4)
 HORNER_CHECK_WINDOWS = (4, 8, 16)
 HORNER_CHECK_POINTS = 1 << 10
 HORNER_CHECK_TOP_WINDOWS = 8
-#: the quotient steps' Horner chains, timed beside the eager chain after the
-#: commitment's: (segments, c)
-HORNER_TIME_SHAPES = ((2, 16), (2, 8), (2, 4))
+#: whole Horner chains held against the eager chain after the commitment's, at
+#: the quotient steps' shapes: (segments, c)
+HORNER_EAGER_SHAPES = ((2, 16), (2, 8), (2, 4))
 #: phase 18's fq_mul_coop against the oracle: entries (phase 15's 2^12)
 COOP_CHECK_LOG = ORACLE_LOG_SIZE
 
@@ -2566,7 +1929,7 @@ def scan_key_sets(rng, n: int, device) -> dict[str, torch.Tensor]:
 def eager_compact_round(key, pt, l_next: int):
     """The compaction round as the port ran it before its kernels: a cummax, a
     cumsum, a searchsorted, two point gathers, a point_add launch at full width
-    and two selects. Timed beside run_scan + compact_add."""
+    and two selects."""
     L = key.shape[0]
     is_left = (mk._run_rank(key) & 1) == 0
     next_same = torch.zeros(L, dtype=torch.bool, device=key.device)
@@ -2686,40 +2049,36 @@ def check_scan_and_round(rng, pool) -> dict[str, int]:
     return errs
 
 
-def quotient_groups(rng, pool, n: int, checks: bool):
+def quotient_groups(rng, pool, n: int):
     """The window sums of a 2^n-input proof's n quotient steps at their real
     shapes: step k, two segments of 2^(n-1-k) random points and scalars at
-    its c. For ``checks``, below c = 16 the top HORNER_CHECK_TOP_WINDOWS
-    windows, and infinities mixed in: a top window, every third window, a
-    whole segment."""
+    its c; below c = 16 the top HORNER_CHECK_TOP_WINDOWS windows, and
+    infinities mixed in: a top window, every third window, a whole segment."""
     groups = []
     for k, c in enumerate(quotient_windows(n)):
         m = 1 << (n - 1 - k)
         scalars = random_scalars(rng, 2 * m, pool[0].device).reshape(2, m, -1)
         per_window = pp._window_sums(tuple(v[:m].contiguous() for v in pool), scalars, c)
-        if checks and c < 16:
+        if c < 16:
             per_window = tuple(v[:, -HORNER_CHECK_TOP_WINDOWS:] for v in per_window)
         per_window = tuple(v.contiguous() for v in per_window)
         z = per_window[2]
-        if checks and k % 3 == 0:
+        if k % 3 == 0:
             z[1, -1] = 0
-        elif checks and k % 3 == 1:
+        elif k % 3 == 1:
             z[0, ::3] = 0
-        elif checks:
+        else:
             z[1] = 0
         groups.append((per_window, c))
     return groups
 
 
-def check_horner(rng, pool) -> tuple[dict[str, int], float]:
+def check_horner(rng, pool) -> dict[str, int]:
     """horner at HORNER_CHECK_SEGMENTS x HORNER_CHECK_WINDOWS on the per-window
     sums of real MSMs, with infinities mixed in, against its plain version
     (computed at the most segments: the lanes are independent), and
     horner_groups on the quotient steps' shapes at every lanes-a-chain. The
-    plain chains of one shape run as one (``horner_groups_plain``). Returns
-    the errors and the plain chain's ms at c = 16 (a chain of one
-    launch-bound eager operation after another: its time hardly depends on
-    the segments)."""
+    plain chains of one shape run as one (``horner_groups_plain``)."""
     S = max(HORNER_CHECK_SEGMENTS)
     m = HORNER_CHECK_POINTS
     points = tuple(v[:m].contiguous() for v in pool)
@@ -2735,8 +2094,8 @@ def check_horner(rng, pool) -> tuple[dict[str, int], float]:
         z[2, ::3] = 0  # segment 2: every third window
         z[3] = 0  # segment 3: every window
         groups.append((per_window, c))
-    quotients = quotient_groups(rng, pool, GKR_NUM_VARS, checks=True)
-    wants, t_plain = timed(lambda: mk.horner_groups_plain(groups + quotients))
+    quotients = quotient_groups(rng, pool, GKR_NUM_VARS)
+    wants = mk.horner_groups_plain(groups + quotients)
     worst = 0
     for (per_window, c), want in zip(groups, wants):
         for segments in HORNER_CHECK_SEGMENTS:
@@ -2757,8 +2116,8 @@ def check_horner(rng, pool) -> tuple[dict[str, int], float]:
         f"{HORNER_CHECK_WINDOWS} (below 16 the top {HORNER_CHECK_TOP_WINDOWS} windows), on the "
         f"window sums of MSMs of {m} points, infinities mixed in; horner_groups on the "
         f"{GKR_NUM_VARS} quotient steps' shapes (c {quotient_windows(GKR_NUM_VARS)}) in one "
-        f"launch; the plain chains (one a shape) {t_plain:.1f}s")
-    return {"horner": worst}, t_plain * 1e3
+        f"launch")
+    return {"horner": worst}
 
 
 def check_coop_product(rng) -> None:
@@ -2782,93 +2141,45 @@ def check_coop_product(rng) -> None:
         "products, 0, 1 and p - 1 among them")
 
 
-def time_round(flush, skey, pt, l_next: int, what: str):
-    """run_scan and compact_add of one real round beside their plain versions,
-    their bounds and the eager round they replace, all with equal results:
-    (the two kernels' records, the round's output)."""
+def check_round(skey, pt, l_next: int, what: str):
+    """run_scan and compact_add of one real round against their plain versions
+    and the eager round they replace; the round's output."""
     scan = mk.run_scan(skey, l_next)
     check(max(max_abs_err(g, w) for g, w in zip(scan, mk.run_scan_plain(skey, l_next))) == 0,
           f"run_scan differs from its plain version on {what}")
     out = mk.compact_add(skey, pt, *scan[:2])
-    plain, t_plain = timed(lambda: mk.compact_add_plain(skey, pt, *scan[:2]))
-    check(round_err(out, plain) == 0, f"compact_add differs from its plain version on {what}")
-    del plain
+    check(round_err(out, mk.compact_add_plain(skey, pt, *scan[:2])) == 0,
+          f"compact_add differs from its plain version on {what}")
     check(round_err(out, eager_compact_round(skey, pt, l_next)) == 0,
           f"the eager round differs on {what}")
-    n = skey.shape[0]
-    survivors = min(int(scan[1]), l_next)
-    i = scan[0][:survivors].to(torch.int64)
-    j = (i + 1).clamp(max=n - 1)
-    adds = int(((i + 1 < n) & (skey[j] == skey[i]) & (pt[2][i] != 0).any(1)
-                & (pt[2][j] != 0).any(1)).sum())
-    rec = {
-        "run_scan": {"ms": time_events(lambda: mk.run_scan(skey, l_next), TIMED_RUNS, flush),
-                     "plain_ms": time_events(lambda: mk.run_scan_plain(skey, l_next), 3, flush),
-                     "bound": roofline.bound(*roofline.run_scan_cost(n, l_next))},
-        "compact_add": {"ms": time_events(lambda: mk.compact_add(skey, pt, *scan[:2]), TIMED_RUNS,
-                                          flush),
-                        "plain_ms": t_plain * 1e3,
-                        "bound": roofline.bound(*roofline.compact_add_cost(l_next, survivors,
-                                                                           adds))},
-    }
-    eager = time_events(lambda: eager_compact_round(skey, pt, l_next), 3, flush)
-    say(f"  {what}, {n} keys -> {l_next} slots ({survivors} survivors, {adds} finite additions): "
-        f"run_scan + compact_add {rec['run_scan']['ms']:.4f} + {rec['compact_add']['ms']:.4f} ms, "
-        f"the eager round {eager:.4f} ms (CUDA events, median, L2 flushed); plain "
-        f"{rec['run_scan']['plain_ms']:.2f} + {rec['compact_add']['plain_ms']:.1f} ms; bounds "
-        + ", ".join(f"{k} {v['bound'].ms:.4f} ms by {v['bound'].by} ({v['bound'].ms / v['ms']:.1%})"
-                    for k, v in rec.items()))
-    for v in rec.values():
-        b = v.pop("bound")
-        v.update(bound_ms=b.ms, bound_by=b.by)
-    return rec, out
+    say(f"  {what}, {skey.shape[0]} keys -> {l_next} slots: run_scan + compact_add == their "
+        "plain versions == the eager round")
+    return out
 
 
-def time_horner(flush, per_window, c: int) -> dict:
-    """horner at one shape beside the eager chain, its bound and one thread's
-    least time, with equal results."""
-    S, W = per_window[0].shape[:2]
-    got = mk.horner(per_window, c)
-    check(triple_err(got, eager_horner(per_window, c)) == 0, "the eager chain differs")
-    ms = time_events(lambda: mk.horner(per_window, c), TIMED_RUNS, flush)
-    eager = time_events(lambda: eager_horner(per_window, c), 3, flush)
-    b = roofline.bound(*roofline.horner_cost(S, W, c))
-    floor = roofline.one_thread_ms(roofline.horner_chain_ops(W, c))
-    say(f"  horner, {S} segment(s), c = {c}: {ms:.4f} ms (CUDA events, median), the eager chain "
-        f"{eager:.3f} ms ({2 * (W - 1)} launches); one thread's least time {floor:.4f} ms "
-        f"({roofline.horner_chain_ops(W, c)} operations at one a cycle), {floor / ms:.1%} of it; "
-        f"bound {b.ms * 1e3:.4f} us by {b.by}")
-    return {"ms": ms, "bound_ms": b.ms, "bound_by": b.by, "one_thread_ms": floor, "eager_ms": eager}
+def check_horner_chain(per_window, c: int) -> None:
+    """horner at one shape, the whole chain, against the eager chain."""
+    check(triple_err(mk.horner(per_window, c), eager_horner(per_window, c)) == 0,
+          "the eager chain differs")
+    say(f"  horner, {per_window[0].shape[0]} segment(s), c = {c}: == the eager chain "
+        f"({2 * (per_window[0].shape[1] - 1)} launches)")
 
 
-def time_quotient_combine(flush, groups) -> None:
-    """The quotient steps' window combines as one horner_groups launch beside
-    one horner launch a step (as before they shared one)."""
-    one = time_events(lambda: mk.horner_groups(groups), TIMED_RUNS, flush)
-    per_step = time_events(lambda: [mk.horner(pw, c) for pw, c in groups], 3, flush)
-    say(f"  the {len(groups)} quotient steps' window combines in one launch: {one:.4f} ms; a launch "
-        f"a step {per_step:.4f} ms (CUDA events, median)")
-
-
-def phase_msm_kernels(gctx, inputs, taus) -> tuple[dict[str, int], dict[str, dict]]:
+def phase_msm_kernels(gctx, inputs, taus) -> dict[str, int]:
     """run_scan, compact_add and horner against their plain versions, word for
-    word, and the cooperative lanes' product against the oracle; then their
-    times at the KZG path's real widths: the commitment MSM's first compaction
-    round (2^24 keys) and a steady one, the Horner chains of the commitment and
-    the quotient steps, and the quotient steps' one launch."""
-    t0 = time.time()
+    word, and the cooperative lanes' product against the oracle; then, at the
+    KZG path's real widths, the commitment MSM's first compaction round (2^24
+    keys) and a steady one, and whole Horner chains, against the eager chains
+    the kernels replace."""
     rng = np.random.default_rng(18)
     check_coop_product(rng)
     pool = random_points(rng, COMPACT_CHECK_TOP, gctx.device)
     errs = check_scan_and_round(rng, pool)
-    horner_errs, horner_plain_ms = check_horner(rng, pool)
-    errs.update(horner_errs)
-    quotients = quotient_groups(rng, pool, GKR_NUM_VARS, checks=False)
+    errs.update(check_horner(rng, pool))
     del pool
     torch.cuda.empty_cache()
 
     # the commitment MSM of phase 8: its presorted lanes and first rounds
-    flush = torch.empty(256 << 20, dtype=torch.int8, device=gctx.device)
     input_poly = MultilinearPoly.from_ints(gctx, inputs)
     basis = KZG.for_poly(input_poly, taus).g1_lagrange_basis
     scalars = fk.from_mont(gctx, input_poly.table)
@@ -2880,34 +2191,29 @@ def phase_msm_kernels(gctx, inputs, taus) -> tuple[dict[str, int], dict[str, dic
     skey, pt = pp._presort(basis, fb.sub(fq, torch.zeros_like(basis[1]), basis[1]), abs_d, signs,
                            nbuck)
     sizes = pp._compaction_schedule(skey.shape[0], 256 // c * nbuck + 1)
-    times, (skey, pt) = time_round(flush, skey, pt, sizes[0], "the commitment's first round")
+    skey, pt = check_round(skey, pt, sizes[0], "the commitment's first round")
     for l_next in sizes[1:]:
         skey, pt = pp._compact_round(skey, pt, l_next)
-    time_round(flush, skey, pt, sizes[-1], "a steady round of the commitment")
+    check_round(skey, pt, sizes[-1], "a steady round of the commitment")
     del skey, pt, abs_d, signs
     torch.cuda.empty_cache()
 
     per_window = pp._window_sums(basis, scalars[None], c)
-    times["horner"] = time_horner(flush, tuple(v.contiguous() for v in per_window), c)
-    times["horner"]["plain_ms"] = horner_plain_ms
-    for segments, cc in HORNER_TIME_SHAPES:
+    check_horner_chain(tuple(v.contiguous() for v in per_window), c)
+    for segments, cc in HORNER_EAGER_SHAPES:
         m = min(1 << 10, n)
         sc = random_scalars(rng, segments * m, basis[0].device).reshape(segments, m, -1)
         pw = pp._window_sums(tuple(v[:m].contiguous() for v in basis), sc, cc)
-        time_horner(flush, tuple(v.contiguous() for v in pw), cc)
-    time_quotient_combine(flush, quotients)
-    say(f"  (phase 18 took {time.time() - t0:.1f}s)")
-    return errs, times
+        check_horner_chain(tuple(v.contiguous() for v in pw), cc)
+    return errs
 
-
-# ----------------------------------------------------------------------
 
 # ----------------------------------------------------------------------
 # phase 19: the fused GKR phase kernels
 # ----------------------------------------------------------------------
 
 #: gkr_big_round against its plain version on stacks of 2^15 to 2^20 entries
-#: (a phase's first round and a steady one, every trim), and its times there
+#: (a phase's first round and a steady one, every trim)
 BIG_ROUND_LOGS = tuple(range(15, 21))
 #: pending tails of the first rounds checked: 8 lanes keep 0-2 coefficients in
 #: one block and carry 3 into two, 16 carry 1-3 and leave 0 in one
@@ -2921,10 +2227,6 @@ TAIL_ALL_TRIMS_LOGS = (1, 2, 3)
 #: sizes
 TAIL_FORCED_BLOCK_MAX = (1, 4, 1 << 9, 1 << 10)
 TAIL_FORCED_LOG = 12
-#: gkr_phase_tail is timed after a fold from twice ``TAIL_MAX`` (the main
-#: path's widest tail, the kernels line's figure) and from 2^19, and from a
-#: phase's first round at ``TAIL_MAX`` and at these sizes
-TAIL_TIME_LOGS = (18, 14, 11, 10, 6, 1)
 
 
 def phase_stack(ctx, rng, size: int, trim: int):
@@ -2960,29 +2262,9 @@ def phase_err(got, want) -> int:
                for g, w in zip(got, want))
 
 
-def parent_round(ctx, stack, r, state, tail):
-    """The parent's launches for one round: fold (where r is given), gkr_round
-    (with its finish_rows) and round_step."""
-    if r is not None:
-        stack = fk.fold(ctx, stack, r)
-    return tk.round_step(ctx, fk.gkr_round(ctx, stack), state, tail)
-
-
-def parent_tail(ctx, stack, r, state, tail):
-    """The parent's launches for a phase tail: a round of them each, then the
-    last fold."""
-    for k in range(gk.tail_rounds(stack.shape[2], r is not None)):
-        if r is not None:
-            stack = fk.fold(ctx, stack, r)
-        _, state, r = tk.round_step(ctx, fk.gkr_round(ctx, stack), state,
-                                    tail if k == 0 else None)
-    return fk.fold(ctx, stack, r)[0, 0, 0]
-
-
-def phase_gkr_phase_kernels(gctx) -> tuple[dict[str, int], dict[str, dict]]:
+def phase_gkr_phase_kernels(gctx) -> dict[str, int]:
     """gkr_big_round and gkr_phase_tail against their plain versions, word for
-    word, then their times beside the parent's launches for the same work."""
-    t0 = time.time()
+    word."""
     rng = np.random.default_rng(19)
     errs = {name: 0 for name in gk.KERNEL_NAMES}
     lib = gk.library()
@@ -3052,49 +2334,7 @@ def phase_gkr_phase_kernels(gctx) -> tuple[dict[str, int], dict[str, dict]]:
         f"a fold, trims 0-3, pending tails of {PHASE_TAIL_LANES} lanes, BLOCK_MAX "
         f"{gk.BLOCK_MAX}; {forced} more up to 2^{TAIL_FORCED_LOG} at BLOCK_MAX "
         f"{TAIL_FORCED_BLOCK_MAX}: max error {errs['gkr_phase_tail']}")
-
-    flush = torch.empty(256 << 20, dtype=torch.int8, device=gctx.device)
-    times = {}
-    for log in BIG_ROUND_LOGS:
-        for first in ((True, False) if log == BIG_ROUND_LOGS[-1] else (False,)):
-            args = phase_round_inputs(gctx, rng, 1 << log, 3, first, 8)
-            ms = time_events(lambda: gk.gkr_big_round(gctx, *args), TIMED_RUNS, flush)
-            dev_us = device_ms(lambda: gk.gkr_big_round(gctx, *args), "gkr_big_round", 50) * 1e3
-            parent = time_events(lambda: parent_round(gctx, *args), TIMED_RUNS, flush)
-            plain = time_events(lambda: gk.gkr_big_round_plain(gctx, *args), 1, flush)
-            b = roofline.bound(*roofline.gkr_big_round_cost(1 << log, not first))
-            floor = roofline.gkr_phase_floor_ms("gkr_big_round", 1 << log, not first)
-            say(f"  gkr_big_round 2^{log} {'first' if first else 'steady'}: {ms:.4f} ms (CUDA "
-                f"events, median, L2 flushed), device {dev_us:.2f} us; the parent's fold + "
-                f"gkr_round + finish_rows + round_step {parent:.4f} ms; plain {plain:.2f} ms; bound "
-                f"{b.ms:.4f} ms by {b.by} (+ round_step's one-warp floor {floor * 1e3:.3f} us: "
-                f"{(b.ms + floor) / ms:.1%} of it)")
-            if log == BIG_ROUND_LOGS[-1] and not first:
-                times["gkr_big_round"] = {"ms": ms, "plain_ms": plain, "bound_ms": b.ms,
-                                          "bound_by": b.by}
-    timed = [(tail_max_log + 1, False), (19, False)] + [
-        (k, True) for k in sorted({tail_max_log, *TAIL_TIME_LOGS}, reverse=True)]
-    for log, first in sorted(set(timed), key=timed.index):
-        args = phase_round_inputs(gctx, rng, 1 << log, 3, first, 8)
-        ms = time_events(lambda: gk.gkr_phase_tail(gctx, *args), TIMED_RUNS)
-        dev_us = device_ms(lambda: gk.gkr_phase_tail(gctx, *args), "gkr_phase_tail", 50) * 1e3
-        parent = time_events(lambda: parent_tail(gctx, *args), TIMED_RUNS)
-        plain = time_events(lambda: gk.gkr_phase_tail_plain(gctx, *args), 1)
-        rounds = gk.tail_rounds(1 << log, not first)
-        b = roofline.bound(*roofline.gkr_phase_tail_cost(1 << log, not first))
-        floor = roofline.gkr_phase_floor_ms("gkr_phase_tail", 1 << log, not first)
-        say(f"  gkr_phase_tail from 2^{log} {'first' if first else 'after a fold'}, {rounds} "
-            f"rounds: {ms:.4f} ms (CUDA events, median), device {dev_us:.2f} us "
-            f"({dev_us / rounds:.2f} a round); the parent's {4 * rounds + 1} launches "
-            f"{parent:.4f} ms; plain {plain:.1f} ms; bound {b.ms * 1e3:.4f} us by {b.by} (+ "
-            f"round_step's one-warp floors {floor * 1e3:.3f} us: {(b.ms + floor) / ms:.1%} of it)")
-        if (log, first) == (tail_max_log + 1, False):
-            times["gkr_phase_tail"] = {"ms": ms, "plain_ms": plain, "bound_ms": b.ms,
-                                       "bound_by": b.by}
-    del flush
-    torch.cuda.empty_cache()
-    say(f"  (phase 19 took {time.time() - t0:.1f}s)")
-    return errs, times
+    return errs
 
 
 # ----------------------------------------------------------------------
@@ -3128,16 +2368,12 @@ def table_inputs(ctx, rng, log: int):
             random_table(ctx, rng, 1)[0])
 
 
-def phase_gkr_tables_kernels(gctx) -> tuple[dict[str, int], dict[str, dict]]:
+def phase_gkr_tables_kernels(gctx) -> None:
     """gkr_wiring, gkr_phase1_stack and gkr_phase2_stack against their plain
     versions (the eager chains they replace), word for word, at every layer
     size of the 2^GKR_NUM_VARS-input walk (2^0 to 2^(GKR_NUM_VARS - 1) gates;
     the wiring also as the output layer's one unscaled term at 1 and 2 gates,
-    the stacks also on the plain coefficients); then each one's time at the
-    widest layer (CUDA events, L2 flushed; device us by the profiler's clock)
-    beside its plain version and its bound, and the host ms of queueing a
-    layer's three launches."""
-    t0 = time.time()
+    the stacks also on the plain coefficients)."""
     rng = np.random.default_rng(20)
     errs = {name: 0 for name in gt.KERNEL_NAMES}
     gt.reset_launches()
@@ -3169,58 +2405,6 @@ def phase_gkr_tables_kernels(gctx) -> tuple[dict[str, int], dict[str, dict]]:
         f"(mixed types, challenges 0, 1, p - 1 among them; the output layer's one term at 1 "
         f"and 2 gates): mismatched words {errs}")
 
-    log = GKR_NUM_VARS - 1
-    n, is_add, challenges, scales, w, r_b, wb = table_inputs(gctx, rng, log)
-    coef_a, coef_m = gt.wiring_coefs(gctx, challenges, scales, is_add, n)
-    flush = torch.empty(256 << 20, dtype=torch.int8, device=gctx.device)
-    runs = {
-        "gkr_wiring": (lambda: gt.wiring_coefs(gctx, challenges, scales, is_add, n),
-                       lambda: gt.wiring_coefs_plain(gctx, challenges, scales, is_add, n),
-                       roofline.gkr_wiring_cost(n, 2)),
-        "gkr_phase1_stack": (lambda: gt.phase1_stack(gctx, coef_a, coef_m, w),
-                             lambda: gt.phase1_stack_plain(gctx, coef_a, coef_m, w),
-                             roofline.gkr_phase1_stack_cost(n)),
-        "gkr_phase2_stack": (lambda: gt.phase2_stack(gctx, coef_a, coef_m, w, r_b, wb),
-                             lambda: gt.phase2_stack_plain(gctx, coef_a, coef_m, w, r_b, wb),
-                             roofline.gkr_phase2_stack_cost(n)),
-    }
-    times = {}
-    for name, (fn, plain_fn, cost) in runs.items():
-        ms = time_events(fn, TIMED_RUNS, flush)
-        dev_us = device_ms(fn, name, 50) * 1e3
-        plain = time_events(plain_fn, 3, flush)
-        b = roofline.bound(*cost)
-        times[name] = {"ms": ms, "plain_ms": plain, "bound_ms": b.ms, "bound_by": b.by}
-        say(f"  {name} at 2^{log} gates: {ms:.4f} ms (CUDA events, median, L2 flushed), device "
-            f"{dev_us:.2f} us; plain (the eager chain) {plain:.3f} ms; bound {b.ms:.4f} ms by "
-            f"{b.by} ({b.ms / ms:.1%} of it)")
-
-    def layer_tables():
-        fa, fm = gt.wiring_coefs(gctx, challenges, scales, is_add, n)
-        gt.phase1_stack(gctx, fa, fm, w)
-        gt.phase2_stack(gctx, fa, fm, w, r_b, wb)
-
-    def layer_tables_plain():
-        fa, fm = gt.wiring_coefs_plain(gctx, challenges, scales, is_add, n)
-        gt.phase1_stack_plain(gctx, fa, fm, w)
-        gt.phase2_stack_plain(gctx, fa, fm, w, r_b, wb)
-
-    for label, fn in (("the kernels", layer_tables), ("the eager chains", layer_tables_plain)):
-        fn()
-        torch.cuda.synchronize()
-        host = []
-        for _ in range(5):
-            start = time.perf_counter()
-            fn()
-            host.append((time.perf_counter() - start) * 1e3)
-            torch.cuda.synchronize()
-        say(f"  a 2^{log}-gate layer's three tables by {label}: host {statistics.median(host):.3f} "
-            f"ms to queue (median of 5), {time_events(fn, 3):.3f} ms with the card's work")
-    del flush
-    torch.cuda.empty_cache()
-    say(f"  (phase 20 took {time.time() - t0:.1f}s)")
-    return errs, times
-
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -3230,7 +2414,6 @@ def main() -> int:
     gpu = gpu_line()
     say(f"[1] device: {gpu}")
     say(f"    torch {torch.__version__}, CUDA {torch.version.cuda}")
-    t0 = time.time()
     _build.build_cuda_libraries(list(CUDA_STEMS))
     fk.library()
     pk.library()
@@ -3238,13 +2421,8 @@ def main() -> int:
     tk.library()
     mk.library()
     gk.library()
-    say(f"    kernels built from {KERNEL_SOURCE} ({_build.build_seconds['sumcheck_kernels']:.1f}s), "
-        f"{POINT_KERNEL_SOURCE} ({_build.build_seconds['point_kernels']:.1f}s), "
-        f"{NTT_KERNEL_SOURCE} ({_build.build_seconds['ntt_kernels']:.1f}s), "
-        f"{TRANSCRIPT_KERNEL_SOURCE} ({_build.build_seconds['transcript_kernels']:.1f}s), "
-        f"{MSM_KERNEL_SOURCE} ({_build.build_seconds['msm_kernels']:.1f}s) and "
-        f"{GKR_PHASE_KERNEL_SOURCE} ({_build.build_seconds['gkr_phase_kernels']:.1f}s), side by "
-        f"side in {time.time() - t0:.1f}s (0.0 = already built)")
+    say(f"    kernels built from {KERNEL_SOURCE}, {POINT_KERNEL_SOURCE}, {NTT_KERNEL_SOURCE}, "
+        f"{TRANSCRIPT_KERNEL_SOURCE}, {MSM_KERNEL_SOURCE} and {GKR_PHASE_KERNEL_SOURCE}, side by side")
     for stem, needles in (("sumcheck_kernels", ("gkr_round_kernel", "halves_sums_kernel",
                                                 "fold_and_halves_kernel")),
                           ("point_kernels", ("point_add_kernel", "point_double_kernel")),
@@ -3269,9 +2447,6 @@ def main() -> int:
                        else lib.zk_sum_threads(fk._SUMMING[name], w))
             say(f"    {name} W = {w}: {threads} threads a block, {n} resident blocks "
                 f"({n / sms:g} an SM)")
-    peaks = roofline.chip_peaks()
-    say(f"    peaks of the bounds (utils/roofline.py): {peaks.bytes_per_s:.4g} bytes/s, "
-        f"{peaks.int32_mad_per_s:.4g} 32-bit multiply-adds/s")
     say(f"    host Keccak backend: {hk.backend()}")
     check(hk.backend() == "c", "the host Keccak fell back to pure Python")
 
@@ -3287,7 +2462,6 @@ def main() -> int:
 
     say("[4] the tie to the reference")
     phase_reference_tie(ctx, poly, proof)
-    phase_path_times(ctx, poly)
 
     del poly
     torch.cuda.empty_cache()
@@ -3297,12 +2471,7 @@ def main() -> int:
     circuit, inputs, proved, gkr_launches = phase_gkr_main_path(gctx)
 
     say("[6] the GKR proof's ties")
-    phase_gkr_ties(gctx, circuit, inputs, proved)
-
-    say("[7] times")
-    phase_gkr_times(gctx, circuit, inputs, proved)
-    torch.cuda.empty_cache()
-    times = phase_kernel_times(ctx)
+    phase_gkr_ties(gctx)
 
     torch.cuda.empty_cache()
     say(f"[8] KZG path: the whole proof of the same 2^{GKR_NUM_VARS}-input circuit, "
@@ -3311,18 +2480,13 @@ def main() -> int:
 
     say("[9] the input proof's ties")
     phase_kzg_ties(gctx, inputs, full_proof, taus, proved)
-
-    say("[10] times of the KZG path")
-    t_prove_single = phase_kzg_times(gctx, circuit, inputs, full_proof, taus)
     # phase 15 decodes this blob; of the proof it keeps what the host holds
-    gkr_blob, gkr_encode_s = timed(lambda: ser.encode_gkr_proof(full_proof))
+    gkr_blob = ser.encode_gkr_proof(full_proof)
     kept = tampered(full_proof, kzg_setup=KZG(None, full_proof.input_proof.kzg_setup.g2_taus,
                                               GKR_NUM_VARS))
     del full_proof
     torch.cuda.empty_cache()
-    point_times = phase_point_kernel_times()
 
-    torch.cuda.empty_cache()
     say("[11] the two NTT kernels against their plain PyTorch versions (exact)")
     errs.update(phase_ntt_kernels_vs_plain())
     rctx = fb.get_ctx(BN254_FR)
@@ -3330,86 +2494,61 @@ def main() -> int:
         f"2^{NTT_LOG_SIZES[1]}, fft_evaluate -> fft_interpolate at 2^{NTT_LOG_SIZES[0]}")
     ntt_results, ntt_poly, ntt_evals, ntt_interp, ntt_launches = phase_ntt_main_path(rctx)
     phase_ntt_ties(rctx, ntt_results, ntt_poly, ntt_evals, ntt_interp)
-    say("[13] times of the NTT path")
-    ntt_times = phase_ntt_times(rctx, ntt_results)
     ntt_inputs = {log_n: r[0] for log_n, r in ntt_results.items()}
     ntt_outputs = {log_n: (r[0], r[2]) for log_n, r in ntt_results.items()}
     del ntt_results, ntt_evals, ntt_interp
     torch.cuda.empty_cache()
     phase_device_kernels(ctx, gctx)
-    say("[14] each path once more under torch.profiler: the kernels' device time at real widths")
+    say("[14] each path once more under torch.profiler: one device kernel a launch")
     scan_op_kernels()
     profiles = phase_profiles(ctx, gctx, rctx, circuit, inputs, taus, ntt_inputs, ntt_poly)
     check_one_launch(profiles)
 
     say("[15] proof bytes and the field oracle")
-    t0 = time.time()
     reset_all_launches()
     phase_oracle()
-    t_oracle = time.time() - t0
-    phase_proof_bytes(proof, gkr_blob, gkr_encode_s, kept, circuit, proved)
+    phase_proof_bytes(proof, gkr_blob, kept, circuit, proved)
     bytes_launches = all_launches()
-    say(f"  launches in phase 15: {bytes_launches}; the oracle part {t_oracle:.1f}s, "
-        f"the phase {time.time() - t0:.1f}s")
+    say(f"  launches in phase 15: {bytes_launches}")
 
     say("[16] the mesh paths: one-process meshes of card slots")
-    t0 = time.time()
     errs.update({name: max(errs[name], err)
                  for name, err in phase_batched_ntt_kernels_vs_plain().items()})
     mesh_launches = phase_mesh_paths(ctx, gctx, rctx, proof, circuit, inputs, taus, gkr_blob,
-                                     kept.input_proof.commitment, ntt_outputs, t_prove_single)
-    say(f"  launches in phase 16: {mesh_launches}; the phase {time.time() - t0:.1f}s")
+                                     kept.input_proof.commitment, ntt_outputs)
+    say(f"  launches in phase 16: {mesh_launches}")
     for name in nk.KERNEL_NAMES + mk.KERNEL_NAMES + ("mont_mul", "fold", "halves_sums",
                                                      "gkr_round", "point_add", "point_double"):
         check(mesh_launches[name] > 0, f"the mesh paths launched no {name}")
 
     say("[17] the transcript kernels, keccak_f and round_step, against their plain PyTorch "
-        "versions (exact), and their times")
-    transcript_errs, transcript_times = phase_transcript_kernels()
-    errs.update(transcript_errs)
+        "versions (exact)")
+    errs.update(phase_transcript_kernels())
 
     say("[18] the MSM kernels, run_scan, compact_add and horner, against their plain PyTorch "
-        "versions (exact), and their times at the KZG path's widths beside the eager chains "
-        "they replace")
-    msm_errs, msm_times = phase_msm_kernels(gctx, inputs, taus)
-    errs.update(msm_errs)
+        "versions (exact), and at the KZG path's widths against the eager chains they replace")
+    errs.update(phase_msm_kernels(gctx, inputs, taus))
 
     say("[19] the fused GKR phase kernels, gkr_big_round and gkr_phase_tail, against their "
-        "plain PyTorch versions (exact), and their times beside the parent's launches")
-    phase_errs, phase_times = phase_gkr_phase_kernels(gctx)
-    errs.update(phase_errs)
+        "plain PyTorch versions (exact)")
+    errs.update(phase_gkr_phase_kernels(gctx))
 
     say("[20] the GKR layer-table kernels, gkr_wiring, gkr_phase1_stack and gkr_phase2_stack, "
-        "against their plain PyTorch versions (exact), and their times beside the eager chains")
+        "against their plain PyTorch versions (exact)")
     phase_gkr_tables_kernels(gctx)
 
-    kernels = []
-    for name in (fk.KERNEL_NAMES + pk.KERNEL_NAMES + nk.KERNEL_NAMES + tk.KERNEL_NAMES
-                 + mk.KERNEL_NAMES + gk.KERNEL_NAMES):
-        if name in gk.KERNEL_NAMES:
-            rec, source = phase_times[name], GKR_PHASE_KERNEL_SOURCE
-        elif name in pk.KERNEL_NAMES:
-            rec, source = point_times[1 << GKR_NUM_VARS][name], POINT_KERNEL_SOURCE
-        elif name in nk.KERNEL_NAMES:
-            rec, source = ntt_times[NTT_LOG_SIZES[0]][name], NTT_KERNEL_SOURCE
-        elif name in tk.KERNEL_NAMES:
-            rec, source = transcript_times[name], TRANSCRIPT_KERNEL_SOURCE
-        elif name in mk.KERNEL_NAMES:
-            rec, source = msm_times[name], MSM_KERNEL_SOURCE
-        else:
-            rec, source = times[1 << NUM_VARS][name], KERNEL_SOURCE
-        kernels.append({
-            "name": name, "route": "cuda", "source": source, "replaces": REPLACES[name],
-            "launches": (launches.get(name, 0) + gkr_launches.get(name, 0) + kzg_launches[name]
-                         + ntt_launches[name] + bytes_launches[name] + mesh_launches[name]),
-            "max_abs_err": errs[name], "ms": rec["ms"], "plain_ms": rec["plain_ms"],
-            "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"], "library_ms": None,
-        })
-    print_ranking(kernels, profiles)
-    say(f"total {time.time() - t_start:.1f}s")
+    sources = {KERNEL_SOURCE: fk, POINT_KERNEL_SOURCE: pk, NTT_KERNEL_SOURCE: nk,
+               TRANSCRIPT_KERNEL_SOURCE: tk, MSM_KERNEL_SOURCE: mk, GKR_PHASE_KERNEL_SOURCE: gk}
+    kernels = [{
+        "name": name, "route": "cuda", "source": source, "replaces": REPLACES[name],
+        "launches": (launches.get(name, 0) + gkr_launches.get(name, 0) + kzg_launches[name]
+                     + ntt_launches[name] + bytes_launches[name] + mesh_launches[name]),
+        "max_abs_err": errs[name],
+    } for source, module in sources.items() for name in module.KERNEL_NAMES]
+    say(f"chip_smoke: {checks_run} checks passed in {time.time() - t_start:.1f}s")
     say(gpu)
     say(json.dumps({"kernels": kernels}))
-    say(json.dumps({"ok": True, "device": {
+    say(json.dumps({"ok": True, "checks": checks_run, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),
     }}))

@@ -43,9 +43,9 @@ PART is one of ``gkr``, ``tail``, ``ntt``, ``sums``, ``msm``, ``transcript``
     every size from 2 to 2^24, device microseconds by the profiler as for
     ``gkr_round`` (a tree whose kernels end in a ``finish_rows`` pass shows it
     apart), held against the plain versions up to 2^16; then at 2^20 and 2^24
-    by CUDA events: L2 flushed as ``chip_smoke.py`` flushes it (by writing a
-    256 MB buffer: cold), flushed by reading that buffer (L2 clean), and not
-    flushed (warm), beside ``torch.sum(x.view(2, half, W), dim=1,
+    by CUDA events: L2 flushed as ``roofline.time_events`` flushes it (by
+    writing a 256 MB buffer: cold), flushed by reading that buffer (L2 clean),
+    and not flushed (warm), beside ``torch.sum(x.view(2, half, W), dim=1,
     dtype=torch.int64)`` on the same bytes, a library reduction's rate (signed
     columns: not the same function);
   * ``msm``: on the KZG path of the 2^20-input GKR proof (``chip_smoke``'s
@@ -57,17 +57,18 @@ PART is one of ``gkr``, ``tail``, ``ntt``, ``sums``, ``msm``, ``transcript``
     on the whole quotient commit (every step's chains: a launch a step, and
     one ``horner_groups`` launch where the tree has it): median ms of 20
     launches by CUDA events, L2 flushed before each, and the registers of the
-    two kernels. ``scripts/profile_prove.py --kzg`` gives the path's stages;
+    two kernels;
   * ``transcript``: ``round_step`` on a steady GKR round (BLS12-381 Fr, 3 rows),
     a steady sumcheck round (BN254 Fq, 2 rows) and a GKR phase's first round
-    of two blocks (a 16-lane tail), as ``chip_smoke.py`` phase 17 times them,
-    each held against its plain version first, and ``keccak_f`` on one state
-    and on 4096: the device microseconds of a launch by the profiler's clock,
-    median of 200 (20 at 4096 states).
+    of two blocks (a 16-lane tail), the shapes of the paths' rounds, each held
+    against its plain version first, and ``keccak_f`` on one state and on 4096:
+    the device microseconds of a launch by the profiler's clock, median of 200
+    (20 at 4096 states).
 
-The warm 2^20 prove is compared between trees by ``scripts/ab_prove.py``, in
-one process. To compare two trees, copy this script into both and run it from each, one
-after the other in one call on one card, in the order A, B, B, A.
+It is the one tool that times a kernel alone; the paths are timed by the
+benchmark (``zkbench/``), and ``chip_smoke.py`` only checks. To compare two
+trees, copy this script into both and run it from each, one after the other in
+one call on one card, in the order A, B, B, A.
 """
 
 from __future__ import annotations
@@ -103,6 +104,8 @@ from zktpu_torch.pcs.kzg import KZG  # noqa: E402
 from zktpu_torch.poly.multilinear import MultilinearPoly  # noqa: E402
 
 RUNS = 20
+#: profiles of a burst taken at most while the tracer drops records
+PROFILE_TRIES = 3
 #: the thresholds a whole fused GKR phase is timed under (``tail`` part)
 TAIL_MAX_CHOICES = tuple(1 << k for k in range(14, 21))
 #: the block rounds' thresholds a phase tail is timed under (``tail`` part)
@@ -222,8 +225,7 @@ def gkr_phase_sizes(tag: str) -> None:
         item = f"2^{k} chain {time_events(chain, RUNS, flush):.4f} ms"
         if has_kernels:
             ms = time_events(lambda: gk.gkr_big_round(ctx, stack, r, state), RUNS, flush)
-            us = cs.device_ms(lambda: gk.gkr_big_round(ctx, stack, r, state), "gkr_big_round",
-                              50) * 1e3
+            us = launch_us(lambda: gk.gkr_big_round(ctx, stack, r, state), "gkr_big_round")
             item += f", gkr_big_round {ms:.4f} ms, device {us:.2f} us"
         line.append(item)
     print(f"{tag} a steady round at 2^15-2^20 (CUDA events, L2 flushed): " + "; ".join(line),
@@ -232,14 +234,16 @@ def gkr_phase_sizes(tag: str) -> None:
 
 def launch_us(fn, kernel: str, runs: int = 50) -> float:
     """Median device microseconds of ``kernel``'s launches over ``runs`` calls
-    of ``fn``, by the profiler's clock; the profile is taken again (up to
-    chip_smoke's PROFILE_TRIES times) while the tracer has dropped more than
-    half of them."""
+    of ``fn``, by the profiler's clock (a launch of a one-thread kernel takes
+    microseconds, and a CUDA event pair around one call would time the
+    wrapper's host path instead); late in a long process the tracer may drop a
+    burst's records, so the profile is taken again, up to PROFILE_TRIES times,
+    while it holds fewer than half of them."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(cs.PROFILE_TRIES):
+    for _ in range(PROFILE_TRIES):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(runs):
                 fn()
@@ -265,7 +269,7 @@ def walk_ms(ctx, stacks, consts, sizes=range(1, 21)) -> tuple[float, float]:
     events = 2 * sum(time_events(lambda: fused_lazy._device_phase(ctx, stacks[k], consts), RUNS)
                      for k in sizes)
     passes = []
-    for _ in range(3 * cs.PROFILE_TRIES):
+    for _ in range(3 * PROFILE_TRIES):
         torch.cuda.synchronize()
         gk.reset_launches()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -417,16 +421,16 @@ def sums_sizes(tag: str) -> None:
                          ("fold_and_halves", lambda: fk.fold_and_halves(ctx, table, r)),
                          ("torch.sum", lambda: torch.sum(table.view(2, half, ctx.num_words),
                                                          dim=1, dtype=torch.int64))):
-            cold = cs.time_events(fn, RUNS, flush)
+            cold = time_events(fn, RUNS, flush)
             clean = time_read_flush(fn, RUNS, flush)
-            warm = cs.time_events(fn, RUNS)
+            warm = time_events(fn, RUNS)
             out.append(f"{name} 2^{k} {cold:.4f} / {clean:.4f} / {warm:.4f}")
         del table
     print(f"{tag} ms cold / cold, L2 flushed by a read / warm: " + "; ".join(out), flush=True)
 
 
 def time_read_flush(fn, runs: int, flush) -> float:
-    """As ``chip_smoke.time_events`` with L2 flushed, but flushed by reading
+    """As ``roofline.time_events`` with L2 flushed, but flushed by reading
     ``flush``, not writing it: L2 then holds clean lines, and the timed call
     has no dirty lines to write back as it evicts them."""
     fn()
@@ -460,13 +464,13 @@ def ntt_and_points(tag: str) -> None:
     for log_n in (20, 22):
         x = cs.random_table(rctx, rng, 1 << log_n)
         tw = nk.stage_twiddles(rctx, log_n, False)
-        ms = cs.time_events(lambda: nk.ntt_phase1(rctx, x, tw, nk.LOG_TILE), RUNS, flush)
+        ms = time_events(lambda: nk.ntt_phase1(rctx, x, tw, nk.LOG_TILE), RUNS, flush)
         out.append(f"ntt_phase1 2^{log_n} {ms:.4f} ms")
     fq = fb.get_ctx(BLS12_381_FQ)
     n = 1 << 20
     p1, p2 = cs.random_points(rng, n, fq.device), cs.random_points(rng, n, fq.device)
-    out.append(f"point_add 2^20 {cs.time_events(lambda: pk.point_add(fq, p1, p2), RUNS, flush):.4f} ms")
-    out.append(f"point_double 2^20 {cs.time_events(lambda: pk.point_double(fq, p1), RUNS, flush):.4f} ms")
+    out.append(f"point_add 2^20 {time_events(lambda: pk.point_add(fq, p1, p2), RUNS, flush):.4f} ms")
+    out.append(f"point_double 2^20 {time_events(lambda: pk.point_double(fq, p1), RUNS, flush):.4f} ms")
     print(f"{tag} " + "; ".join(out), flush=True)
 
 
@@ -493,7 +497,7 @@ def time_run_scan(flush, skey, l_next: int) -> str:
     got, want = mk.run_scan(skey, l_next), mk.run_scan_plain(skey, l_next)
     cs.check(all(torch.equal(g, w) for g, w in zip(got, want)),
              f"run_scan differs from its plain version on {skey.shape[0]} keys")
-    ms = cs.time_events(lambda: mk.run_scan(skey, l_next), RUNS, flush)
+    ms = time_events(lambda: mk.run_scan(skey, l_next), RUNS, flush)
     split = " + ".join(f"{name} {us:.2f}" for name, us in
                        kernel_us(lambda: mk.run_scan(skey, l_next), "run_scan").items())
     return f"{skey.shape[0]} keys -> {l_next} slots {ms:.4f} ms (device us {split})"
@@ -501,7 +505,7 @@ def time_run_scan(flush, skey, l_next: int) -> str:
 
 def time_compact_add(flush, skey, pt, l_next: int) -> str:
     scan = mk.run_scan(skey, l_next)
-    ms = cs.time_events(lambda: mk.compact_add(skey, pt, *scan[:2]), RUNS, flush)
+    ms = time_events(lambda: mk.compact_add(skey, pt, *scan[:2]), RUNS, flush)
     return f"{skey.shape[0]} keys -> {l_next} slots {ms:.4f} ms"
 
 
@@ -547,12 +551,12 @@ def msm_kernels(tag: str) -> None:
         groups.append((pw, ck))
         if k == 0 or ck != groups[k - 1][1]:
             shapes.append((f"quotient step {k}, 2 segments", pw, ck))
-    out = [f"{label}, c = {cc}: {cs.time_events(lambda: mk.horner(pw, cc), RUNS, flush):.4f} ms"
+    out = [f"{label}, c = {cc}: {time_events(lambda: mk.horner(pw, cc), RUNS, flush):.4f} ms"
            for label, pw, cc in shapes]
-    ms = cs.time_events(lambda: [mk.horner(pw, cc) for pw, cc in groups], RUNS, flush)
+    ms = time_events(lambda: [mk.horner(pw, cc) for pw, cc in groups], RUNS, flush)
     out.append(f"quotient commit, a launch a step: {ms:.4f} ms")
     if hasattr(mk, "horner_groups"):
-        ms = cs.time_events(lambda: mk.horner_groups(groups), RUNS, flush)
+        ms = time_events(lambda: mk.horner_groups(groups), RUNS, flush)
         out.append(f"quotient commit, one launch: {ms:.4f} ms")
     print(f"{tag} horner ms: " + "; ".join(out), flush=True)
 
@@ -568,13 +572,13 @@ def transcript_kernels(tag: str) -> None:
         want = tk.round_step_plain(ctx, rows, state, tail_lanes)
         cs.check(all(torch.equal(g, w) for g, w in zip(got, want)),
                  f"round_step differs from its plain version on a {label}")
-        us = cs.device_ms(lambda: tk.round_step(ctx, rows, state, tail_lanes), "round_step") * 1e3
+        us = launch_us(lambda: tk.round_step(ctx, rows, state, tail_lanes), "round_step", 200)
         out.append(f"{label} {us:.3f} us")
     for states, runs in ((1, 200), (4096, 20)):
         x = cs.random_lanes(rng, 25 * states, torch.device("cuda")).reshape(states, 25)
         cs.check(torch.equal(tk.keccak_f(x), tk.keccak_f_plain(x)),
                  f"keccak_f differs from its plain version on {states} states")
-        us = cs.device_ms(lambda: tk.keccak_f(x), "keccak_f", runs) * 1e3
+        us = launch_us(lambda: tk.keccak_f(x), "keccak_f", runs)
         out.append(f"keccak_f {states} state(s) {us:.3f} us")
     print(f"{tag} transcript, device us a launch: " + "; ".join(out), flush=True)
 

@@ -2,8 +2,9 @@
 
 For each circuit of tests/test_gkr_protocol.py the same gates and inputs go into
 both packages. zktpu proves once per circuit (its proof carries the KZG input
-proof, computed on the CPU); the port's ``prove_layers`` runs dense, lazy and
-fused on the CPU (``device="cpu"``, the kernels' plain versions). Tolerance 0:
+proof, computed on the CPU); the port's ``prove_layers`` runs dense, fused and
+on a two-slot CPU mesh (the sharded prover, which fetches and squeezes a round
+on the host) on the CPU (``device="cpu"``, the kernels' plain versions). Tolerance 0:
 every round polynomial, claimed evaluation, output entry and input evaluation
 is compared as an integer, and ``verify_layers`` must accept zktpu's proof once
 converted and refuse the tampered ones. The port's whole ``prove`` / ``verify``
@@ -29,6 +30,8 @@ from zktpu_torch.field import torch_backend as fb
 from zktpu_torch.field.spec import BLS12_381_FR, BN254_FQ
 from zktpu_torch.gkr import protocol as gkr
 from zktpu_torch.gkr.circuit import ADD, MUL, Circuit, Layer
+from zktpu_torch.parallel import context as pctx
+from zktpu_torch.parallel import mesh as pm
 from zktpu_torch.poly.multilinear import MultilinearPoly
 from zktpu_torch.utils import tracker
 
@@ -64,10 +67,12 @@ CIRCUITS = {
 #: test_dense_prover_tracker_counts_equal_zktpu reads the counts of the proof
 #: the other tests compare (zktpu's dense and lazy proofs are the same values)
 TRACKED = "two_layers"
+#: how ``prove_layers`` is run: the dense tensors, the lazy tables on one
+#: device (the fused prover), and the lazy tables on two slots of the CPU
 MODES = {
     "dense": dict(lazy=False),
-    "lazy": dict(lazy=True, fused=False),
-    "fused": dict(lazy=True, fused=True),
+    "mesh": dict(lazy=True, mesh=2),
+    "fused": dict(lazy=True),
 }
 
 
@@ -89,7 +94,10 @@ class Case:
 
     def proof(self, mode):
         if mode not in self._proofs:
-            self._proofs[mode] = gkr.prove_layers(self.circuit, self.inputs, **MODES[mode])
+            options = dict(MODES[mode])
+            slots = options.pop("mesh", None)
+            with pctx.use_mesh(pm.make_mesh(devices=["cpu"] * slots) if slots else None):
+                self._proofs[mode] = gkr.prove_layers(self.circuit, self.inputs, **options)
         return self._proofs[mode]
 
 
@@ -176,13 +184,27 @@ def test_trimmed_round_polynomial_goes_through_the_fused_path():
     assert lengths == [[len(c) for c in layer] for layer in _coeffs(case.jproof.proof_polynomials)]
 
 
-def test_defaults_pick_lazy_and_fused():
+def test_defaults_pick_lazy_and_fused(monkeypatch):
+    """With no options and no mesh every layer runs the fused prover, and the
+    walk takes no ``fused`` option."""
     case = _cases.get("two_layers") or Case("two_layers")
     assert gkr._lazy_ok(case.circuit)
     assert not gkr._lazy_ok(Circuit(ctx, [[ADD, ADD, ADD]]))
     assert not gkr._lazy_ok(Circuit(ctx, [[ADD] * 4]))
+    calls = []
+    fused = gkr.gkr_prove_lazy_fused
+
+    def spy(*args):
+        calls.append(args)
+        return fused(*args)
+
+    monkeypatch.setattr(gkr, "gkr_prove_lazy_fused", spy)
     default = gkr.prove_layers(case.circuit, case.inputs)
+    assert len(calls) == len(case.structure)
     assert _coeffs(default.proof.proof_polynomials) == _coeffs(case.proof("fused").proof.proof_polynomials)
+    for call in (gkr.prove_layers, gkr.prove):
+        with pytest.raises(TypeError):
+            call(case.circuit, case.inputs, fused=False)
     with pytest.raises(ValueError):
         gkr.prove_layers(Circuit(fb.get_ctx(BN254_FQ, device="cpu"), [[ADD]]), [1, 2])
 

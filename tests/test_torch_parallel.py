@@ -266,7 +266,10 @@ def _lazy_case(seed: int, n_gates: int):
 
 def test_sharded_lazy_gkr_sumcheck_matches_dense(mesh, jmesh):
     """The exact round polynomials and challenges of the single-device lazy
-    prover and of zktpu's sharded one, and the same next transcript challenge."""
+    prover (the fused one) and of zktpu's sharded one, and the same next
+    transcript challenge."""
+    from zktpu_torch.gkr.fused_lazy import gkr_prove_lazy_fused
+
     ctx = fb.get_ctx(BLS12_381_FR, device="cpu")
     jctx = jfb.get_ctx(JAX_BLS_FR)
     ops, w_vals, r_b, r_c = _lazy_case(3, 16)
@@ -275,7 +278,7 @@ def test_sharded_lazy_gkr_sumcheck_matches_dense(mesh, jmesh):
     w = MultilinearPoly.from_ints(ctx, w_vals)
     fbc = lazy_mod.lazy_folded_fbc(ctx, Layer(ops), w, r_b, r_c, alpha, beta)
     t_dense = Transcript(BLS12_381_FR)
-    dense = lazy_mod.gkr_prove_lazy(777, fbc, t_dense)
+    dense = gkr_prove_lazy_fused(777, fbc, t_dense)
     t_shard = Transcript(BLS12_381_FR)
     sharded = pm.gkr_sumcheck_lazy_sharded(777, fbc, t_shard, mesh)
 

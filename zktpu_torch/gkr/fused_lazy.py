@@ -1,10 +1,11 @@
 """Fused lazy-GKR sumcheck phases: Fiat-Shamir ON the device.
 
-The counterpart of ``zktpu/gkr/fused_lazy.py``. The host-loop lazy prover
-(``gkr.lazy.gkr_prove_lazy``) pays one device->host trip per round for the
-transcript squeeze. Here each sumcheck PHASE keeps the Keccak sponge on the
-device, so the host uploads the sponge state and its pending tail (one copy),
-queues every round, and fetches the phase's coefficient rows once:
+The counterpart of ``zktpu/gkr/fused_lazy.py``, and the port's one
+single-device prover of a lazy layer sumcheck (``gkr/lazy.py``'s ``LazyFbc``;
+over a mesh, ``parallel.mesh.gkr_sumcheck_lazy_sharded``, which fetches each
+round's sums and squeezes on the host). Each sumcheck PHASE keeps the Keccak
+sponge on the device, so the host uploads the sponge state and its pending tail
+(one copy), queues every round, and fetches the phase's coefficient rows once:
 
   * the phase's composed tables live as one contiguous (2, 2, size, W) product
     stack: [[F, G], [H, 1]] for phase 1 and [[A2, wb + w], [M2 wb, w]] for
@@ -25,7 +26,7 @@ per-shape compilations of its tracing compiler; that has no counterpart here:
 launch. ``TAIL_MAX`` is the port's own threshold, the table size up to which
 one tail launch beats a launch a round on the card.
 
-Transcript bytes are identical to the host path INCLUDING the trim: the
+Transcript bytes are identical to the dense prover's INCLUDING the trim: the
 reference absorbs ``interpolate``'s trailing-zero-trimmed coefficient vector,
 and a vanishing quadratic coefficient is structural for some layers (all-ADD
 wiring), not rare. Each round finds the trimmed length on the card, so no
@@ -141,8 +142,9 @@ def _run_phase(ctx: FieldCtx, transcript: Transcript, tables, ones: bool = False
 
 def gkr_prove_lazy_fused(claimed_sum: int, fbc: "lazy_mod.LazyFbc",
                          transcript: Transcript) -> GkrSumcheckProof:
-    """Drop-in replacement for ``lazy.gkr_prove_lazy``: same proof values, two
-    fetches per layer instead of one per round."""
+    """One layer's lazy sumcheck (``sumcheck.gkr_prove`` on the dense f(b,c),
+    the same proof values) in two phases of device launches, one fetch a
+    phase."""
     ctx = fbc.ctx
     if ctx.spec.byte_len != 32:
         raise ValueError("fused prover requires a 32-byte field (digest width)")

@@ -26,10 +26,12 @@ is exact field arithmetic, so each round polynomial is the *identical field
 element sequence* the dense-tensor prover emits -- proof bytes match bit for
 bit. Total prover work per layer drops from O(|w|^2) to O(|w|) field ops.
 
-On the device: the wiring coefficients and both phase stacks are one kernel
-launch each (``gkr/tables.py``), every fold goes through the ``fold`` kernel,
-and phase 2's round evaluations through the ``gkr_round`` kernel. The
-verifier's wiring evaluation takes whole eq tables (``eq_tensor``).
+This module builds a layer's ``LazyFbc`` (its wiring coefficients, one kernel
+launch, ``gkr/tables.py``) and evaluates the wiring predicates for the
+verifier, on whole eq tables (``eq_tensor``). The sumcheck over a ``LazyFbc``
+runs in ``gkr/fused_lazy.py`` on one device and in
+``parallel.mesh.gkr_sumcheck_lazy_sharded`` over a mesh; both build the phase
+stacks with ``gkr/tables.py``.
 """
 
 from __future__ import annotations
@@ -40,42 +42,10 @@ from ..field import kernels as fk
 from ..field import torch_backend as fb
 from ..field.torch_backend import FieldCtx
 from ..poly.multilinear import MultilinearPoly
-from ..poly.univariate import UnivariatePoly
-from ..sumcheck.protocol import (
-    GkrSumcheckProof,
-    _encode,
-    _to_ints,
-    fold_tables_kernel,
-)
-from ..transcript import Transcript
+from ..sumcheck.protocol import _encode, _to_ints
 from . import tables as gt
 from .circuit import Layer
 from .tables import eq_tensor
-
-
-def _phase1_round_kernel(ctx: FieldCtx, tables):
-    """Round-poly evaluations y_t (t = 0,1,2) of sum_rest (F*G + H).
-
-    ``tables``: (3, size, W) Montgomery stack [F, G, H]. Same field values as
-    the dense partial_evaluate + reduce + sum at each t. Plain PyTorch.
-    """
-    half = tables.shape[1] // 2
-    a = tables[:, :half]
-    b = tables[:, half:]
-    diff = fb.sub(ctx, b, a)
-
-    ys = []
-    two = fb.add(ctx, ctx.one_mont, ctx.one_mont)
-    for t in range(3):
-        if t == 0:
-            vals = a
-        elif t == 1:
-            vals = b
-        else:
-            vals = fb.add(ctx, a, fb.mont_mul(ctx, two, diff))
-        total = fb.add(ctx, fb.mont_mul(ctx, vals[0], vals[1]), vals[2])
-        ys.append(fb.field_sum(ctx, total, axis=0))
-    return torch.stack(ys)
 
 
 class LazyFbc:
@@ -147,42 +117,6 @@ def lazy_folded_fbc(ctx: FieldCtx, layer: Layer, w_poly: MultilinearPoly,
         raise ValueError("r_b width must match the layer's gate-index bits")
     coef_a, coef_m = _folded_coefs(ctx, layer, r_b, r_c, alpha, beta)
     return LazyFbc(ctx, coef_a, coef_m, w_poly)
-
-
-def gkr_prove_lazy(claimed_sum: int, fbc: LazyFbc,
-                   transcript: Transcript) -> GkrSumcheckProof:
-    """Drop-in replacement for ``sumcheck.gkr_prove`` on a LazyFbc: identical
-    transcript bytes, O(|w|) work per layer instead of O(|w|^2)."""
-    ctx = fbc.ctx
-    spec = ctx.spec
-    nb = fbc.num_rounds // 2
-    proof_polynomials = []
-    random_challenges = []
-
-    def finish_round(ys, tables):
-        round_poly = UnivariatePoly.interpolate(spec, [(t, y) for t, y in enumerate(ys)])
-        transcript.append_field_elements(round_poly.coefficients)
-        proof_polynomials.append(round_poly)
-        r = transcript.get_random_challenge()
-        random_challenges.append(r)
-        return fold_tables_kernel(ctx, tables, _encode(ctx, r))
-
-    # ---- phase 1: bind b ------------------------------------------------
-    stack = gt.phase1_stack(ctx, fbc.coef_a, fbc.coef_m, fbc.w_table)
-    tables = stack.reshape(4, *fbc.w_table.shape)[:3]  # (3, 2n, W): F, G, H
-    for _ in range(nb):
-        tables = finish_round(_to_ints(ctx, _phase1_round_kernel(ctx, tables)), tables)
-
-    wb = tables[0, 0]  # w(r_b)
-
-    # ---- phase 2: bind c ------------------------------------------------
-    tables2 = gt.phase2_stack(ctx, fbc.coef_a, fbc.coef_m, fbc.w_table,
-                              _encode(ctx, random_challenges), wb)
-    for _ in range(nb):
-        ys = fk.lazy_rows_to_ints(ctx, fk.gkr_round(ctx, tables2))
-        tables2 = finish_round(ys, tables2)
-
-    return GkrSumcheckProof(proof_polynomials, claimed_sum, random_challenges)
 
 
 # ----------------------------------------------------------------------

@@ -197,29 +197,25 @@ def _context(circuit: Circuit):
     return circuit.ctx
 
 
-def prove_layers(circuit: Circuit, inputs: list[int], lazy: bool | None = None,
-                 fused: bool | None = None) -> LayersProof:
+def prove_layers(circuit: Circuit, inputs: list[int], lazy: bool | None = None) -> LayersProof:
     """Every layer's sumcheck of a GKR proof over BLS12-381 Fr (reference
     :31-91), on the device of ``circuit.ctx``.
 
     ``lazy``: use the O(|w|) phase-table sumcheck (``gkr/lazy.py``) instead of
     the reference-shaped dense tensors; proof bytes are identical. Auto-selected
-    when None. ``fused``: run each lazy phase with the Fiat-Shamir sponge on the
-    device (``gkr/fused_lazy.py``); defaults to True whenever the lazy path is
-    active. Under ``parallel.context.use_mesh`` each lazy layer whose w table
-    the mesh's slots divide runs ``gkr_sumcheck_lazy_sharded``; the proof is the
-    same."""
-    return _walk_layers(circuit, inputs, lazy, fused)[0]
+    when None. A lazy layer runs ``gkr_prove_lazy_fused`` (``gkr/fused_lazy.py``,
+    the Fiat-Shamir sponge on the device), or, under ``parallel.context.use_mesh``
+    where the mesh's slots divide its w table, ``gkr_sumcheck_lazy_sharded``;
+    the proof is the same."""
+    return _walk_layers(circuit, inputs, lazy)[0]
 
 
-def _walk_layers(circuit: Circuit, inputs: list[int], lazy, fused):
+def _walk_layers(circuit: Circuit, inputs: list[int], lazy):
     """The layer walk: (LayersProof, the input polynomial)."""
     ctx = _context(circuit)
     transcript = Transcript(FR)
     if lazy is None:
         lazy = _lazy_ok(circuit)
-    if fused is None:
-        fused = lazy
 
     with tracker.span("gkr.inputs"):
         input_poly = MultilinearPoly.from_ints(ctx, inputs)
@@ -262,10 +258,8 @@ def _walk_layers(circuit: Circuit, inputs: list[int], lazy, fused):
                                                        min_rows=1):
                     sc_proof = pm.gkr_sumcheck_lazy_sharded(claimed_sum, fbc_poly, transcript,
                                                             mesh)
-                elif fused:
-                    sc_proof = gkr_prove_lazy_fused(claimed_sum, fbc_poly, transcript)
                 else:
-                    sc_proof = lazy_mod.gkr_prove_lazy(claimed_sum, fbc_poly, transcript)
+                    sc_proof = gkr_prove_lazy_fused(claimed_sum, fbc_poly, transcript)
         else:
             with tracker.span("gkr.tables"):
                 if idx == 0:
@@ -303,9 +297,9 @@ def _walk_layers(circuit: Circuit, inputs: list[int], lazy, fused):
 
 
 def prove(circuit: Circuit, inputs: list[int], taus: list[int] | None = None,
-          lazy: bool | None = None, fused: bool | None = None, mesh=None) -> GkrProof:
+          lazy: bool | None = None, mesh=None) -> GkrProof:
     """Full GKR proof over BLS12-381 Fr (reference :31-126): the layer walk
-    (``prove_layers``; ``lazy`` and ``fused`` as there), then the KZG commitment
+    (``prove_layers``; ``lazy`` as there), then the KZG commitment
     to the input layer and its openings at r_b and r_c, on the device of
     ``circuit.ctx``. ``taus``: the trusted setup's secrets, from fresh entropy
     when None (reference :92-103). ``mesh``: a ``parallel.mesh.Mesh``, active
@@ -314,8 +308,8 @@ def prove(circuit: Circuit, inputs: list[int], taus: list[int] | None = None,
     gets ``MIN_ROWS_PER_DEVICE`` points; the proof is the single device's."""
     if mesh is not None:
         with pctx.use_mesh(mesh):
-            return prove(circuit, inputs, taus=taus, lazy=lazy, fused=fused)
-    layers, input_poly = _walk_layers(circuit, inputs, lazy, fused)
+            return prove(circuit, inputs, taus=taus, lazy=lazy)
+    layers, input_poly = _walk_layers(circuit, inputs, lazy)
 
     if taus is None:
         taus = random_taus(input_poly.num_vars)

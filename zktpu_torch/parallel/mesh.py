@@ -240,7 +240,8 @@ def gkr_sumcheck_lazy_sharded(claimed_sum: int, fbc: lazy_mod.LazyFbc, transcrip
     sharded on their minor bits, each round is the ``gkr_round`` kernel on every
     shard's (2, 2, rows, W) stack (the D partial lazy rows reduced mod p at
     home) and the ``fold`` kernel on every shard; transcript bytes are
-    ``gkr_prove_lazy``'s.
+    ``gkr/fused_lazy.py:gkr_prove_lazy_fused``'s. On a mesh of one slot it is
+    the port's host-loop lazy prover: a fetch and a host squeeze a round.
 
     Both phases run as 2-product / 2-factor stacks ([[F, G], [H, 1]] in phase 1
     -- a product by the table of ones changes no field value); a phase shards
